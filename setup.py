@@ -24,7 +24,14 @@ setup(
     packages=find_packages(exclude=["tests"]),
     python_requires=">=3.10",
     install_requires=["numpy", "jax", "pyyaml"],
-    entry_points={"console_scripts": ["bigsi-tpu = bigsi_tpu.__main__:main"]},
+    extras_require={"torch": ["torch"]},
+    package_data={"bigsi_tpu_torch": ["csrc/*.cu"]},
+    entry_points={
+        "console_scripts": [
+            "bigsi-tpu = bigsi_tpu.__main__:main",
+            "bigsi-tpu-torch = bigsi_tpu_torch.__main__:main",
+        ]
+    },
     cmdclass={"build_py": BuildWithNative},
     license="MIT",
 )
