@@ -3,34 +3,60 @@
 The port of ``bigsi_tpu/index/device_engine.py:DeviceEngine`` for
 search.  Same method surface as
 :class:`bigsi_tpu.index.host_engine.HostEngine` (numpy in, numpy out),
-so it plugs into the facade's engine seam.  The matrix lives on the
+so it plugs into the facade's engine seam.  The matrix goes to the
 device once, row-major, as ``int32[m_pad, W]`` holding the uint32 bits
 (:func:`load_words`); the tiled layouts zero-pad it to whole tiles, and
 tile ``t`` is rows ``t * tile_rows ... t * tile_rows + tile_rows - 1``.
 
 * classic: kernel A (:func:`~bigsi_tpu_torch.ops.fused_lookup.classic_counts`)
   gathers each k-mer's h rows, ANDs them and counts hits per sample;
-* blocked / minimizer: kernel B
-  (:func:`~bigsi_tpu_torch.ops.fused_lookup.tile_counts`) takes each
-  k-mer's tile and a 64-bit slot mask instead.
+* blocked: kernel B (:func:`~bigsi_tpu_torch.ops.fused_lookup.tile_counts`)
+  takes each k-mer's tile and a 64-bit slot mask instead;
+* minimizer: consecutive k-mers share tiles, so the per-k-mer streams
+  are grouped (:func:`~bigsi_tpu_torch.ops.lookup.build_grouped_streams`:
+  one entry per run of a tile, a slot per k-mer).  At tile_rows up to
+  32 the engine derives the cols layout at load with kernel D
+  (:func:`~bigsi_tpu_torch.ops.fused_lookup.pack_tile_cols`), frees the
+  row-major words, and counts with kernel E
+  (:func:`~bigsi_tpu_torch.ops.fused_lookup.cols_counts`); at tile_rows 64
+  kernel C (:func:`~bigsi_tpu_torch.ops.fused_lookup.grouped_tile_counts`)
+  counts over the row-major words.
 
-A single query reduces through the same kernel as a batch of one;
-scoring's presence rows come from the plain ops.  The JAX engine's cols
-and seq serving paths are not ported yet, so ``supports_kmer_batch``
-and ``supports_seq_batch`` are False and the facade takes
-``counts_batch``.  PyTorch compiles nothing per shape, so no bucketing
-of K or B is needed.
+On a cols engine with slot scheme 2 or 3 and the native library,
+``counts_batch_kmers`` serves the facade's batches straight from ASCII
+k-mers: bigsi_tpu's threaded native prep builds the grouped streams, the
+next chunk's prep overlapping the current chunk's kernel.  A single
+query reduces through its layout's kernel as a batch of one; scoring's
+presence rows come from the plain ops.  The seq serving path is not
+ported, so ``supports_seq_batch`` is False.  PyTorch compiles nothing
+per shape, so no bucketing of K or B is needed.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
-from bigsi_tpu.hashing.scheme import TILE_ROWS
+from bigsi_tpu import native
+from bigsi_tpu.hashing.scheme import (
+    MINIMIZER_SEED,
+    TILE_ROWS,
+    default_minimizer_s,
+    default_run_len,
+    window_to_s,
+)
 from bigsi_tpu.matrix.bitmatrix import BitSliceMatrix
+from bigsi_tpu.utils.profiling import phase
 from bigsi_tpu_torch.ops import lookup as plain
-from bigsi_tpu_torch.ops.fused_lookup import classic_counts, tile_counts
+from bigsi_tpu_torch.ops.fused_lookup import (
+    classic_counts,
+    cols_counts,
+    grouped_tile_counts,
+    pack_tile_cols,
+    tile_counts,
+)
 
 TILED_LAYOUTS = ("blocked", "minimizer")
 LOAD_CHUNK_ROWS = 1 << 20  # rows per host->device copy in load_words
@@ -84,10 +110,25 @@ def tile_streams(row_idx: torch.Tensor, mask: torch.Tensor, tile_rows: int):
     return tile, torch.where(mask, smask, 0)
 
 
+def kmer_streams_to_device(prep, device):
+    """The native prep's (utile int32[B, U], gmask uint32[B, U, r],
+    n_valid int32[B]) -> the same on ``device``, gmask as int64, as
+    kernel E takes them.  The masks cross at their native 32 bits and
+    are widened on the device."""
+    utile, gmask, n_valid = (
+        torch.from_numpy(np.ascontiguousarray(a, dtype=dtype).view(np.int32)).to(device)
+        for a, dtype in zip(prep, (np.int32, np.uint32, np.int32))
+    )
+    return utile, gmask.long() & 0xFFFFFFFF, n_valid
+
+
 class DeviceEngine:
+    SERVE_CHUNK = 256  # queries per kernel launch in counts_batch_kmers
+
     def __init__(
         self, matrix: BitSliceMatrix, device=None, layout: str = "classic",
-        tile_rows: int = TILE_ROWS,
+        tile_rows: int = TILE_ROWS, minimizer_window: int | None = None,
+        slot_scheme: int = 1, run_len: int | None = None,
     ):
         if layout != "classic" and layout not in TILED_LAYOUTS:
             raise ValueError("unknown layout %r" % layout)
@@ -96,11 +137,24 @@ class DeviceEngine:
         self.layout = layout
         self.tile_rows = tile_rows
         self.tiled = layout in TILED_LAYOUTS
+        self.minimizer_window = minimizer_window
+        self.slot_scheme = slot_scheme
+        # grouped-stream slots per entry: persisted per index, else the
+        # JAX engine's default for the window (r = w + 1 for w >= 15)
+        if run_len is None and layout == "minimizer":
+            run_len = default_run_len(minimizer_window)
+        self.run_len = run_len
         self.words = load_words(
             np.asarray(matrix.words), self.device, tile_rows if self.tiled else None
         )
         if self.words.shape[0] >= 1 << 31:
             raise ValueError("row ids are int32: at most 2**31 - 1 rows")
+        self.cols = None
+        if layout == "minimizer" and plain.cols_dtype(tile_rows) is not None:
+            # the same bits, transposed within each tile: the row-major
+            # copy is freed once the cols exist
+            self.cols = pack_tile_cols(self.words, tile_rows)
+            self.words = None
 
     def _to_device(self, arr: np.ndarray, dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr, dtype=dtype)).to(self.device)
@@ -119,7 +173,13 @@ class DeviceEngine:
         if not self.tiled:
             return classic_counts(self.words, idx, valid)
         tile, smask = tile_streams(idx, valid, self.tile_rows)
-        return tile_counts(self.words, tile, smask, self.tile_rows)
+        if self.layout == "blocked":
+            return tile_counts(self.words, tile, smask, self.tile_rows)
+        utile, gmask = plain.build_grouped_streams(tile, smask, self.run_len or plain.GROUP_R)
+        if self.cols is None:
+            return grouped_tile_counts(self.words, utile, gmask, self.tile_rows)
+        n_valid = valid.sum(dim=1, dtype=torch.int32)
+        return cols_counts(self.cols, utile, gmask, n_valid)
 
     # -- single query: `packed` is an opaque handle the facade passes
     #    back; the empty query stays a numpy array, as on the host engine
@@ -154,7 +214,10 @@ class DeviceEngine:
         if self.tiled:
             valid = torch.ones(idx.shape[0], dtype=torch.bool, device=self.device)
             tile, smask = tile_streams(idx, valid, self.tile_rows)
-            rows = plain.blocked_presence(self.words, tile, smask, self.tile_rows)
+            if self.cols is not None:
+                rows = plain.cols_presence(self.cols, tile, smask)
+            else:
+                rows = plain.blocked_presence(self.words, tile, smask, self.tile_rows)
         else:
             rows = plain.and_rows(self.words, idx)
         host = rows.cpu().numpy().view(np.uint32)
@@ -174,8 +237,75 @@ class DeviceEngine:
         counts, _ = self._reduce(row_idx, mask)
         return counts[:, :num_cols].cpu().numpy().astype(np.int64)
 
+    # -- the k-mer serving path (minimizer cols, slot scheme 2 or 3)
+
     def supports_kmer_batch(self) -> bool:
-        return False  # the cols arm (counts_batch_kmers) is not ported yet
+        """True when ``counts_batch_kmers`` serves: minimizer layout, slot
+        scheme 2 or 3, cols resident, and the native prep library."""
+        return (
+            self.layout == "minimizer"
+            and self.slot_scheme in (2, 3)
+            and self.cols is not None
+            and native.available()
+        )
+
+    def _prep_kmer_chunk(self, kmer_rows, qstart, h):
+        """One threaded native pass: ASCII k-mer rows uint8[n, k], qstart
+        int64[B+1] -> (utile, gmask uint32, n_valid) numpy grouped
+        streams.  The native masks are 32 bits wide, enough for the cols
+        layout's tile_rows of at most 32."""
+        k = kmer_rows.shape[1]
+        s = window_to_s(k, self.minimizer_window) or default_minimizer_s(k)
+        num_tiles = max(1, self.matrix.num_rows // self.tile_rows)
+        prep = native.prep_minimizer_v3 if self.slot_scheme == 3 else native.prep_minimizer_v2
+        with phase("engine.kmer_prep"):
+            out = prep(
+                kmer_rows, qstart, s, MINIMIZER_SEED, num_tiles, h, self.tile_rows,
+                self.run_len or plain.GROUP_R,
+            )
+        if out is None:
+            raise RuntimeError(
+                "native prep unavailable: call supports_kmer_batch() first"
+            )
+        return out
+
+    def _dispatch_kmer_chunk(self, prep, num_cols: int) -> np.ndarray:
+        """Copies in, kernel E, counts back (timed as one span)."""
+        with phase("engine.kmer_counts"):
+            utile, gmask, n_valid = kmer_streams_to_device(prep, self.device)
+            counts, _ = cols_counts(self.cols, utile, gmask, n_valid)
+            return counts[:, :num_cols].cpu().numpy().astype(np.int64)
+
+    def counts_batch_kmers(
+        self, kmer_rows: np.ndarray, qstart: np.ndarray, h: int, num_cols: int
+    ) -> np.ndarray:
+        """ASCII k-mers straight to per-query counts: kmer_rows uint8[n, k]
+        (each query's distinct k-mers, concatenated), qstart int64[B+1] ->
+        int64[B, num_cols].  Batches past SERVE_CHUNK go in chunks, the
+        next chunk's native prep (which releases the GIL) submitted to a
+        worker thread before the current chunk's kernel is dispatched."""
+        b = len(qstart) - 1
+        if b == 0:
+            return np.zeros((0, num_cols), dtype=np.int64)
+        chunk = self.SERVE_CHUNK
+        if b <= chunk:
+            return self._dispatch_kmer_chunk(self._prep_kmer_chunk(kmer_rows, qstart, h), num_cols)
+        spans = [(q0, min(q0 + chunk, b)) for q0 in range(0, b, chunk)]
+
+        def prep(span):
+            q0, q1 = span
+            r0, r1 = qstart[q0], qstart[q1]
+            return self._prep_kmer_chunk(kmer_rows[r0:r1], qstart[q0 : q1 + 1] - r0, h)
+
+        out = np.zeros((b, num_cols), dtype=np.int64)
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            pending = pool.submit(prep, spans[0])
+            for i, (q0, q1) in enumerate(spans):
+                ready = pending.result()
+                if i + 1 < len(spans):
+                    pending = pool.submit(prep, spans[i + 1])
+                out[q0:q1] = self._dispatch_kmer_chunk(ready, num_cols)
+        return out
 
     def supports_seq_batch(self) -> bool:
         return False  # the seq arm (counts_batch_seqs) is not ported yet

@@ -3,6 +3,8 @@ versions) against bigsi_tpu.BIGSI on the JAX device engine (JAX on the
 CPU) and on the numpy host engine: the same index, the same queries,
 identical result dicts (tolerance zero)."""
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -163,3 +165,191 @@ def test_engine_counts_batch_matches_host_engine():
     np.testing.assert_array_equal(got, HostEngine(matrix).counts_batch(row_idx, mask, 50))
     with pytest.raises(IndexError):
         DeviceEngine(matrix, device="cpu").counts_batch(row_idx + 100, mask, 50)
+
+
+# -- the minimizer grouped serving arm ----------------------------------------
+
+
+def spy(monkeypatch, obj, name):
+    """Count the calls of obj.name (a class attribute: every instance)."""
+    calls = []
+    real = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(obj, name, wrapper)
+    return calls
+
+
+# the JAX package's headline serving config (tests/test_layout.py:399):
+# minimizer at tile_rows 16, w = 19, slot scheme 3, r = 20
+HEADLINE = {"minimizer-window": 19}
+
+
+@pytest.mark.parametrize("reference", ["tpu", "numpy"])
+def test_headline_cols_engine_matches_jax_package(monkeypatch, reference):
+    config, queries = build_index("te-headline", "minimizer", 16, **HEADLINE)
+    port = bigsi_tpu_torch.BIGSI(config, device="cpu")
+    engine = port.engine
+    assert engine.run_len == 20 and engine.slot_scheme == 3
+    assert engine.cols is not None and engine.cols.dtype == torch.int16 and engine.words is None
+    assert engine.supports_kmer_batch() and not engine.supports_seq_batch()
+    kmer_calls = spy(monkeypatch, DeviceEngine, "counts_batch_kmers")
+    batch_calls = spy(monkeypatch, DeviceEngine, "counts_batch")
+    ref = bigsi_tpu.BIGSI(dict(config, engine=reference))
+    for threshold in (1.0, 0.7):
+        for q in queries:
+            assert port.search(q, threshold) == ref.search(q, threshold)
+        got = port.search_batch(queries, threshold)
+        assert got == ref.search_batch(queries, threshold)
+        assert any(got), "the queries hit"
+    for q in queries[:3]:
+        assert port.search(q, 0.7, score=True) == ref.search(q, 0.7, score=True)
+    assert port.search_batch(queries[:3], 0.7, score=True) == ref.search_batch(
+        queries[:3], 0.7, score=True)
+    assert len(kmer_calls) == 3 and not batch_calls
+
+
+def test_default_minimizer_engine_serves_counts_batch_kmers(monkeypatch):
+    """The default minimizer config (tile_rows 32, w = 11, slot scheme 3)
+    has int32 cols and takes the k-mer path too."""
+    config, queries = build_index("te-default-cols", "minimizer", 32)
+    port = bigsi_tpu_torch.BIGSI(config, device="cpu")
+    engine = port.engine
+    assert engine.run_len == 6 and engine.slot_scheme == 3
+    assert engine.cols is not None and engine.cols.dtype == torch.int32 and engine.words is None
+    assert engine.supports_kmer_batch()
+    kmer_calls = spy(monkeypatch, DeviceEngine, "counts_batch_kmers")
+    batch_calls = spy(monkeypatch, DeviceEngine, "counts_batch")
+    host = bigsi_tpu.BIGSI(config)
+    for threshold in (1.0, 0.7):
+        assert port.search_batch(queries, threshold) == host.search_batch(queries, threshold)
+    assert len(kmer_calls) == 2 and not batch_calls
+
+
+def test_kmer_streams_cross_at_32_bits_and_widen_on_the_device():
+    from bigsi_tpu_torch.index.device_engine import kmer_streams_to_device
+
+    utile = np.array([[3, 1]], dtype=np.int32)
+    gmask = np.array([[[1 << 31 | 5, 0], [0xFFFFFFFF, 1 << 16]]], dtype=np.uint32)
+    n_valid = np.array([3], dtype=np.int32)
+    got_u, got_g, got_n = kmer_streams_to_device((utile, gmask, n_valid), torch.device("cpu"))
+    assert (got_u.dtype, got_g.dtype, got_n.dtype) == (torch.int32, torch.int64, torch.int32)
+    np.testing.assert_array_equal(got_u.numpy(), utile)
+    np.testing.assert_array_equal(got_g.numpy(), gmask.astype(np.int64))
+    np.testing.assert_array_equal(got_n.numpy(), n_valid)
+
+
+def test_slot_scheme_2_takes_the_v2_native_prep(monkeypatch):
+    config, queries = build_index("te-scheme2", "minimizer", 16, **{"slot-scheme": 2}, **HEADLINE)
+    port = bigsi_tpu_torch.BIGSI(config, device="cpu")
+    assert port.engine.slot_scheme == 2 and port.engine.supports_kmer_batch()
+    v2 = spy(monkeypatch, bigsi_tpu.native, "prep_minimizer_v2")
+    v3 = spy(monkeypatch, bigsi_tpu.native, "prep_minimizer_v3")
+    host = bigsi_tpu.BIGSI(config)
+    for threshold in (1.0, 0.7):
+        assert port.search_batch(queries, threshold) == host.search_batch(queries, threshold)
+    assert len(v2) == 2 and not v3
+
+
+def test_query_with_an_n_base_matches_host_engine():
+    """tests/test_scheme_v3.py:169: every k-mer of the query overlaps an N."""
+    config = {
+        "storage-engine": "memory", "storage-config": {"filename": "te-nbase"},
+        "k": K, "m": 65536, "h": 3, "layout": "minimizer", "tile-rows": 16,
+    }
+    get_storage(config).delete_all()
+    rng = np.random.default_rng(9)
+    base = random_seq(rng, 150)
+    seq_n = base[:60] + "N" + base[61:]
+    blooms = [bigsi_tpu.BIGSI.bloom(config, [s[i : i + K] for i in range(len(s) - K + 1)])
+              for s in (seq_n, base)]
+    bigsi_tpu.BIGSI.build(config, blooms, ["with_n", "plain"])
+    port = bigsi_tpu_torch.BIGSI(config, device="cpu")
+    host = bigsi_tpu.BIGSI(config)
+    query = seq_n[40:90]
+    want = host.search(query, 1.0)
+    assert {r["sample_name"] for r in want} >= {"with_n"}
+    assert port.search(query, 1.0) == want
+    batch = [query, base[:80], query[:40]]
+    for threshold in (1.0, 0.7):
+        assert port.search_batch(batch, threshold) == host.search_batch(batch, threshold)
+
+
+def test_counts_batch_kmers_in_chunks_overlaps_the_next_prep(monkeypatch):
+    """With chunks of 4, each chunk's kernel dispatch waits until the next
+    chunk's native prep has started on the worker thread: it would wait
+    forever if the prep were submitted only after the dispatch."""
+    config, queries = build_index("te-chunks", "minimizer", 16, **HEADLINE)
+    port = bigsi_tpu_torch.BIGSI(config, device="cpu")
+    host = bigsi_tpu.BIGSI(config)
+    monkeypatch.setattr(DeviceEngine, "SERVE_CHUNK", 4)
+    sizes = [4, 4, 4, 4, 1]  # 17 queries
+    started = [threading.Event() for _ in sizes]
+    preps, dispatched = [], []
+    prep, dispatch = DeviceEngine._prep_kmer_chunk, DeviceEngine._dispatch_kmer_chunk
+
+    def spy_prep(self, kmer_rows, qstart, h):
+        started[len(preps)].set()
+        preps.append(len(qstart) - 1)
+        return prep(self, kmer_rows, qstart, h)
+
+    def spy_dispatch(self, ready, num_cols):
+        i = len(dispatched)
+        dispatched.append(ready[0].shape[0])
+        if i + 1 < len(sizes):
+            assert started[i + 1].wait(timeout=30), "chunk %d's prep overlaps dispatch %d" % (i + 1, i)
+        return dispatch(self, ready, num_cols)
+
+    monkeypatch.setattr(DeviceEngine, "_prep_kmer_chunk", spy_prep)
+    monkeypatch.setattr(DeviceEngine, "_dispatch_kmer_chunk", spy_dispatch)
+    batch = queries + queries[::-1] + queries[:3]
+    for threshold in (1.0, 0.7):
+        preps.clear()
+        dispatched.clear()
+        for event in started:
+            event.clear()
+        assert port.search_batch(batch, threshold) == host.search_batch(batch, threshold)
+        assert preps == sizes and dispatched == sizes
+
+
+def test_staged_insert_on_a_cols_engine_takes_counts_batch(monkeypatch):
+    config, queries = build_index("te-headline-insert", "minimizer", 16, **HEADLINE)
+    bloom = bigsi_tpu.BIGSI.bloom(config, seq_to_kmers(queries[3], K))
+    bigsi_tpu.BIGSI(config).insert(bloom, "inserted")
+    port = bigsi_tpu_torch.BIGSI(config, device="cpu")
+    host = bigsi_tpu.BIGSI(config)
+    assert port.side is not None and port.engine.supports_kmer_batch()
+    kmer_calls = spy(monkeypatch, DeviceEngine, "counts_batch_kmers")
+    batch_calls = spy(monkeypatch, DeviceEngine, "counts_batch")
+    for threshold in (1.0, 0.7):
+        got = port.search_batch(queries, threshold)
+        assert got == host.search_batch(queries, threshold)
+    assert any(r["sample_name"] == "inserted" for r in got[3])
+    assert len(batch_calls) == 2 and not kmer_calls
+
+
+@pytest.mark.parametrize("tile_rows,kernel", [(8, "cols_counts"), (32, "cols_counts"),
+                                              (64, "grouped_tile_counts")])
+def test_minimizer_counts_batch_takes_the_grouped_kernels(monkeypatch, tile_rows, kernel):
+    """counts_batch on a minimizer engine groups the streams and runs
+    kernel E (cols) or kernel C (tile_rows 64), never kernel B."""
+    from bigsi_tpu_torch.index import device_engine
+
+    rng = np.random.default_rng(tile_rows)
+    num_tiles, w, b, k, h = 40, 2, 4, 30, 3
+    words = rng.integers(0, 2**32, size=(num_tiles * tile_rows, w), dtype=np.uint32)
+    matrix = BitSliceMatrix(words, w * 32)
+    tile = np.repeat(rng.integers(0, num_tiles, size=(b, k // 3)), 3, axis=1)
+    row_idx = tile[..., None] * tile_rows + rng.integers(0, tile_rows, size=(b, k, h))
+    mask = rng.random((b, k)) < 0.8
+    mask[1] = False
+    engine = DeviceEngine(matrix, device="cpu", layout="minimizer", tile_rows=tile_rows)
+    assert (engine.cols is None) == (tile_rows == 64)
+    calls = spy(monkeypatch, device_engine, kernel)
+    b_calls = spy(monkeypatch, device_engine, "tile_counts")
+    got = engine.counts_batch(row_idx, mask, w * 32)
+    np.testing.assert_array_equal(got, HostEngine(matrix).counts_batch(row_idx, mask, w * 32))
+    assert len(calls) == 1 and not b_calls
