@@ -31,6 +31,12 @@
 //   column l, and every slot ANDs its rows from there.  The TPU kernels'
 //   W == 32 limit, U % 16 == 0, twisted lanes and carry-save planes
 //   served the TPU's vector unit and do not carry over.
+// * tile_counts_only is kernel B built without the exact AND and its
+//   write (template kExact = false): the counts-only stage k2 of the
+//   bisection probe scripts/bisect_kernel.py:49 (S3).
+//
+// Kernels F and G, gather_rows and tile_xor, are the probes' kernels,
+// described at their code below.
 //
 // What bounds kernels A, B and C on an H100: gathered bytes, at random rows.  At
 // m = 2.5e7 and W = 32 the matrix is 3.2 GB, far beyond the 50 MB L2, so
@@ -68,14 +74,17 @@ struct Acc {
   unsigned exact;
 };
 
+template <bool kExact = true>
 __device__ __forceinline__ void add_kmer(Acc& acc, unsigned p) {
 #pragma unroll
   for (int j = 0; j < 32; ++j) acc.cnt[j] += (p >> j) & 1u;
-  acc.exact &= p;
+  if (kExact) acc.exact &= p;
 }
 
 // Sums the block's accumulators and writes query b's slice of counts
-// (32 counters per word, sample order) and exact for this chunk.
+// (32 counters per word, sample order) and, with kExact, exact for this
+// chunk.
+template <bool kExact = true>
 __device__ void write_out(const Acc& acc, int b, int chunk, int W,
                           int32_t* __restrict__ counts,
                           int32_t* __restrict__ exact) {
@@ -83,11 +92,11 @@ __device__ void write_out(const Acc& acc, int b, int chunk, int W,
   __shared__ unsigned s_exact[32];
   const int lane = threadIdx.x & 31;
   for (int i = threadIdx.x; i < 32 * kStride; i += blockDim.x) s_cnt[i] = 0;
-  if (threadIdx.x < 32) s_exact[threadIdx.x] = kAllOnes;
+  if (kExact && threadIdx.x < 32) s_exact[threadIdx.x] = kAllOnes;
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < 32; ++j) atomicAdd(&s_cnt[lane * kStride + j], acc.cnt[j]);
-  atomicAnd(&s_exact[lane], acc.exact);
+  if (kExact) atomicAnd(&s_exact[lane], acc.exact);
   __syncthreads();
   const int nw = min(32, W - chunk * 32);
   const size_t word0 = static_cast<size_t>(b) * W + static_cast<size_t>(chunk) * 32;
@@ -95,7 +104,9 @@ __device__ void write_out(const Acc& acc, int b, int chunk, int W,
   for (int i = threadIdx.x; i < nw * 32; i += blockDim.x) {
     out[i] = s_cnt[(i >> 5) * kStride + (i & 31)];
   }
-  if (threadIdx.x < nw) exact[word0 + threadIdx.x] = static_cast<int32_t>(s_exact[threadIdx.x]);
+  if (kExact && threadIdx.x < nw) {
+    exact[word0 + threadIdx.x] = static_cast<int32_t>(s_exact[threadIdx.x]);
+  }
 }
 
 // The contiguous run [lo, hi) of a staged chunk of n k-mers that this
@@ -155,6 +166,9 @@ classic_counts_kernel(const unsigned* __restrict__ words, int W,
   write_out(acc, b, chunk, W, counts, exact);
 }
 
+// kExact = false is the counts-only build: exact is not written (and
+// may be null).
+template <bool kExact>
 __global__ void __launch_bounds__(kThreads)
 tile_counts_kernel(const unsigned* __restrict__ words, int W,
                    const int32_t* __restrict__ tile,
@@ -202,11 +216,11 @@ tile_counts_kernel(const unsigned* __restrict__ words, int W,
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        if (ok[u]) add_kmer(acc, p[u]);
+        if (ok[u]) add_kmer<kExact>(acc, p[u]);
       }
     }
   }
-  write_out(acc, b, chunk, W, counts, exact);
+  write_out<kExact>(acc, b, chunk, W, counts, exact);
 }
 
 constexpr int kRowBatch = 8;  // row reads of one entry issued together
@@ -440,6 +454,172 @@ int launch_cols_counts(const void* cols, int W, const void* utile, const void* g
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kExact>
+int launch_tile_counts(const void* words, int W, const void* tile, const void* smask, int B,
+                       int K, int tile_rows, void* counts, void* exact, cudaStream_t stream) {
+  if (B <= 0 || W <= 0 || K < 0 || tile_rows < 1 || tile_rows > 64) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t per_kmer = sizeof(unsigned long long) + sizeof(int32_t);
+  const int kc = static_cast<int>(std::max<size_t>(1, std::min<size_t>(K, kStageBytes / per_kmer)));
+  const size_t smem = static_cast<size_t>(kc) * per_kmer;
+  const dim3 grid(B, (W + 31) / 32);
+  tile_counts_kernel<kExact><<<grid, kThreads, smem, stream>>>(
+      static_cast<const unsigned*>(words), W, static_cast<const int32_t*>(tile),
+      static_cast<const int64_t*>(smask), K, tile_rows, kc,
+      static_cast<int32_t*>(counts), static_cast<int32_t*>(exact));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- the probes' kernels: F and G ----------------------------------------
+//
+// * gather_rows (kernel F) replaces the Pallas kernel of
+//   scripts/probe_multidma.py:62 (S2): out[i] = mat[idx[i]], rows of Wr
+//   words.  The TPU kernel's point was many row copies in flight; here a
+//   group of lanes (the fewest, a power of two up to 32, that cover a
+//   row's vectors) copies kRows rows, the reads of all kRows issued
+//   before any is stored, so a warp keeps kRows * 32 / lanes rows in
+//   flight (kRows at rows of 128 vectors and more: the --chunk of S2).
+//   Rows are read as 16-byte vectors where Wr % 4 == 0 and the pointers
+//   allow, else word by word.  Bound by random-row reads from HBM.
+// * tile_xor (kernel G) replaces the XOR-consume floor of the probes of
+//   P1's loop: scripts/bisect_kernel.py:49 (S3 case k1),
+//   scripts/bisect_compile.py:107 (S4), scripts/bisect_size.py:73 (S5),
+//   and the floor of scripts/microbench.py:233 (S1).  Per query, the XOR
+//   of the whole tiles of its valid k-mers, out int32[B, tile_rows, W].
+//   Like kernel B: one block per (query, 32-word chunk), the k-mers
+//   staged in shared memory and split into one contiguous run per warp,
+//   lane l owning word 32 * chunk + l.  Every row of a valid k-mer's
+//   tile is read (the TPU loop fetched whole tiles), kXorBatch row reads
+//   in flight per warp across k-mer boundaries; each warp XORs into its
+//   own [tile_rows][32] shared-memory accumulator (lane l only touches
+//   column l, so no sync), and the block XORs the warps' accumulators
+//   at the end.  Shared rather than register accumulators keep any
+//   tile_rows up to 64 in one build with no spills.  Bound by streaming
+//   whole tiles from HBM: tile_rows * 128 bytes per k-mer and chunk.
+
+constexpr int kGatherWarps = 8;
+constexpr int kXorBatch = 16;  // row reads of one warp issued together
+
+template <typename V, int kRows>
+__global__ void __launch_bounds__(32 * kGatherWarps)
+gather_rows_kernel(const V* __restrict__ mat, int wv, const int32_t* __restrict__ idx,
+                   int64_t n, int lanes, V* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (lanes - 1);
+  const int64_t warp = static_cast<int64_t>(blockIdx.x) * kGatherWarps + (threadIdx.x >> 5);
+  const int64_t r0 = (warp * (32 / lanes) + lane / lanes) * kRows;
+  if (r0 >= n) return;  // no block-wide sync below
+  int32_t src[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) src[q] = r0 + q < n ? __ldg(idx + r0 + q) : 0;
+  for (int c = sub; c < wv; c += lanes) {
+    V v[kRows];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      if (r0 + q < n) v[q] = __ldg(mat + static_cast<size_t>(src[q]) * wv + c);
+    }
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      if (r0 + q < n) out[static_cast<size_t>(r0 + q) * wv + c] = v[q];
+    }
+  }
+}
+
+template <typename V, int kRows>
+int launch_gather_rows(const void* mat, int wv, const void* idx, int64_t n, void* out,
+                       cudaStream_t stream) {
+  int lanes = 1;
+  while (lanes < wv && lanes < 32) lanes *= 2;
+  const int64_t per_block = static_cast<int64_t>(kGatherWarps) * (32 / lanes) * kRows;
+  const int64_t blocks = (n + per_block - 1) / per_block;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  gather_rows_kernel<V, kRows><<<static_cast<unsigned>(blocks), 32 * kGatherWarps, 0, stream>>>(
+      static_cast<const V*>(mat), wv, static_cast<const int32_t*>(idx), n, lanes,
+      static_cast<V*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V>
+int launch_gather_rows(const void* mat, int wv, const void* idx, int64_t n, int rows,
+                       void* out, cudaStream_t stream) {
+  switch (rows) {
+    case 1: return launch_gather_rows<V, 1>(mat, wv, idx, n, out, stream);
+    case 2: return launch_gather_rows<V, 2>(mat, wv, idx, n, out, stream);
+    case 4: return launch_gather_rows<V, 4>(mat, wv, idx, n, out, stream);
+    case 8: return launch_gather_rows<V, 8>(mat, wv, idx, n, out, stream);
+    case 16: return launch_gather_rows<V, 16>(mat, wv, idx, n, out, stream);
+    case 32: return launch_gather_rows<V, 32>(mat, wv, idx, n, out, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory: per warp a [tile_rows][32] XOR accumulator,
+// then [kc] tile ids and [kc] valid flags.
+__global__ void __launch_bounds__(kThreads)
+tile_xor_kernel(const unsigned* __restrict__ words, int W, const int32_t* __restrict__ tile,
+                const uint8_t* __restrict__ valid, int K, int tile_rows, int kc,
+                int32_t* __restrict__ out) {
+  extern __shared__ unsigned s_acc[];  // [kWarps][tile_rows][32]
+  int32_t* s_tile = reinterpret_cast<int32_t*>(s_acc + kWarps * tile_rows * 32);
+  uint8_t* s_valid = reinterpret_cast<uint8_t*>(s_tile + kc);
+  const int b = blockIdx.x;
+  const int chunk = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int w = chunk * 32 + lane;
+  const bool live = w < W;
+  unsigned* acc = s_acc + (threadIdx.x >> 5) * tile_rows * 32 + lane;  // column l of my warp's
+  for (int s = 0; s < tile_rows; ++s) acc[s * 32] = 0u;
+  const int32_t* q_tile = tile + static_cast<size_t>(b) * K;
+  const uint8_t* q_valid = valid + static_cast<size_t>(b) * K;
+  for (int k0 = 0; k0 < K; k0 += kc) {
+    const int n = min(kc, K - k0);
+    __syncthreads();  // the previous chunk is consumed
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      s_tile[i] = q_tile[k0 + i];
+      s_valid[i] = q_valid[k0 + i];
+    }
+    __syncthreads();
+    int lo, hi;
+    warp_run(n, lo, hi);
+    // walk the (k-mer, row) pairs of the run's valid k-mers; e and s
+    // are the same on every lane of the warp
+    int e = lo, s = 0;
+    while (e < hi && !s_valid[e]) ++e;
+    while (e < hi) {
+      int row[kXorBatch];
+      unsigned v[kXorBatch];
+#pragma unroll
+      for (int q = 0; q < kXorBatch; ++q) {
+        row[q] = -1;
+        v[q] = 0u;
+        if (e < hi) {
+          row[q] = s;
+          if (live) v[q] = __ldg(words + (static_cast<size_t>(s_tile[e]) * tile_rows + s) * W + w);
+          if (++s == tile_rows) {
+            s = 0;
+            for (++e; e < hi && !s_valid[e]; ++e) {
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kXorBatch; ++q) {
+        if (row[q] >= 0) acc[row[q] * 32] ^= v[q];
+      }
+    }
+  }
+  __syncthreads();
+  const int nw = min(32, W - chunk * 32);
+  int32_t* q_out = out + static_cast<size_t>(b) * tile_rows * W + static_cast<size_t>(chunk) * 32;
+  for (int i = threadIdx.x; i < tile_rows * 32; i += blockDim.x) {
+    const int r = i >> 5, l = i & 31;
+    unsigned x = 0u;
+    for (int wp = 0; wp < kWarps; ++wp) x ^= s_acc[(wp * tile_rows + r) * 32 + l];
+    if (l < nw) q_out[static_cast<size_t>(r) * W + l] = static_cast<int32_t>(x);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -471,17 +651,49 @@ int classic_counts(const void* words, int W, const void* row_idx,
 int tile_counts(const void* words, int W, const void* tile, const void* smask,
                 int B, int K, int tile_rows, void* counts, void* exact,
                 void* stream) {
+  return launch_tile_counts<true>(words, W, tile, smask, B, K, tile_rows, counts, exact,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// tile_counts without the exact AND: counts only.
+int tile_counts_only(const void* words, int W, const void* tile, const void* smask,
+                     int B, int K, int tile_rows, void* counts, void* stream) {
+  return launch_tile_counts<false>(words, W, tile, smask, B, K, tile_rows, counts, nullptr,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// mat uint32[m, Wr], idx int32[n], every id in [0, m); out uint32[n, Wr].
+// rows: rows each lane group keeps in flight, 1, 2, 4, 8, 16 or 32.
+int gather_rows(const void* mat, int Wr, const void* idx, int64_t n, int rows, void* out,
+                void* stream) {
+  if (Wr <= 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = Wr % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(mat) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  return vec ? launch_gather_rows<uint4>(mat, Wr / 4, idx, n, rows, out, s)
+             : launch_gather_rows<unsigned>(mat, Wr, idx, n, rows, out, s);
+}
+
+// words uint32[m_pad, W] with m_pad a multiple of tile_rows; tile
+// int32[B, K], every id in [0, m_pad / tile_rows); valid uint8[B, K];
+// out uint32[B, tile_rows, W].  tile_rows in [1, 64].
+int tile_xor(const void* words, int W, const void* tile, const void* valid, int B, int K,
+             int tile_rows, void* out, void* stream) {
   if (B <= 0 || W <= 0 || K < 0 || tile_rows < 1 || tile_rows > 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t per_kmer = sizeof(unsigned long long) + sizeof(int32_t);
+  const size_t per_kmer = sizeof(int32_t) + sizeof(uint8_t);
   const int kc = static_cast<int>(std::max<size_t>(1, std::min<size_t>(K, kStageBytes / per_kmer)));
-  const size_t smem = static_cast<size_t>(kc) * per_kmer;
+  const size_t smem = static_cast<size_t>(kWarps) * tile_rows * 32 * sizeof(unsigned) +
+                      static_cast<size_t>(kc) * per_kmer;
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_xor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B, (W + 31) / 32);
-  tile_counts_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  tile_xor_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(words), W, static_cast<const int32_t*>(tile),
-      static_cast<const int64_t*>(smask), K, tile_rows, kc,
-      static_cast<int32_t*>(counts), static_cast<int32_t*>(exact));
+      static_cast<const uint8_t*>(valid), K, tile_rows, kc, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -50,22 +50,27 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / ("%s-%s.so" % (Path(source).stem, digest))
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless its library is already built."""
-    out = library_path(source)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # a private name, then an atomic rename: concurrent builders never
-    # load a half-written library
-    tmp = out.with_name("%s.%d.tmp" % (out.name, os.getpid()))
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+def compile_source(source: str, out: Path) -> None:
+    """Run nvcc on ``csrc/<source>`` into the library ``out``."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             "nvcc failed on %s (exit %d):\n%s"
             % (source, proc.returncode, proc.stderr)
         )
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` unless its library is already built."""
+    out = library_path(source)
+    if out.exists():
+        return out
+    # a private name, then an atomic rename: concurrent builders never
+    # load a half-written library
+    tmp = out.with_name("%s.%d.tmp" % (out.name, os.getpid()))
+    compile_source(source, tmp)
     os.replace(tmp, out)
     return out
 

@@ -18,12 +18,21 @@
 * :func:`cols_counts` is kernel E.  It replaces the XLA program
   ``bigsi_tpu/ops/lookup.py:grouped_counts_cols`` and adds the exact AND,
   so single queries on a cols engine take the same kernel.
+* :func:`gather_rows` is kernel F.  It replaces the Pallas kernel of the
+  probe ``scripts/probe_multidma.py:62`` (S2), a random-row gather.
+* :func:`tile_xor` is kernel G.  It replaces the XOR-consume floor of the
+  probes of P1's loop (``scripts/bisect_kernel.py:49`` case k1,
+  ``scripts/bisect_compile.py:107``, ``scripts/bisect_size.py:73``) and
+  of ``scripts/microbench.py:233`` (S1).
+* ``tile_counts(..., exact=False)`` launches kernel B's counts-only
+  build, the k2 stage of ``scripts/bisect_kernel.py:49`` (S3).
 
 A wrapper checks its arguments, then runs the plain version from
 :mod:`bigsi_tpu_torch.ops.lookup` for tensors on the CPU, and launches
 its kernel for tensors on a CUDA device.  It never falls back: a build
 or launch that fails raises.  Each wrapper counts its kernel's launches
-in its ``launches`` attribute.
+in its ``launches`` attribute; ``tile_counts`` also counts its
+counts-only launches in ``counts_only_launches``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ MAX_HASHES = 8192  # row ids of one k-mer that fit the kernel's staging
 MAX_RUN = 4095  # slots of one grouped entry that fit the kernels' staging
 MAX_COLS_TILE_ROWS = 32  # the widest cols element is 32 bits
 COLS_DTYPES = (torch.uint8, torch.int16, torch.int32)
+ROWS_IN_FLIGHT = (1, 2, 4, 8, 16, 32)  # gather_rows builds: rows a lane group keeps in flight
 
 _count_lock = threading.Lock()
 
@@ -53,8 +63,12 @@ def _library() -> ctypes.CDLL:
     lib.grouped_tile_counts.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
     lib.pack_tile_cols.argtypes = [ptr, i32, i64, i32, i32, ptr, ptr]
     lib.cols_counts.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr]
+    lib.tile_counts_only.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, ptr, ptr]
+    lib.gather_rows.argtypes = [ptr, i32, ptr, i64, i32, ptr, ptr]
+    lib.tile_xor.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, ptr, ptr]
     for fn in (lib.classic_counts, lib.tile_counts, lib.grouped_tile_counts,
-               lib.pack_tile_cols, lib.cols_counts):
+               lib.pack_tile_cols, lib.cols_counts, lib.tile_counts_only,
+               lib.gather_rows, lib.tile_xor):
         fn.restype = i32
     lib.lookup_error_string.argtypes = [i32]
     lib.lookup_error_string.restype = ctypes.c_char_p
@@ -89,12 +103,13 @@ def count_outputs(t, b, w):
     )
 
 
-def launch(fn, device, args, outs):
-    """Launch the kernel of wrapper ``fn`` (the library function of its
-    name) on the current stream of ``device`` with ``args`` and then the
-    outputs' pointers, raise on a launch error, count the launch;
-    returns ``outs``."""
-    name = fn.__name__
+def launch(fn, device, args, outs, symbol=None, counters=("launches",)):
+    """Launch the kernel of wrapper ``fn`` (the library function
+    ``symbol``, by default of the wrapper's name) on the current stream of
+    ``device`` with ``args`` and then the outputs' pointers, raise on a
+    launch error, add one to each of ``fn``'s ``counters``; returns
+    ``outs``."""
+    name = symbol or fn.__name__
     with torch.cuda.device(device):
         lib = _library()
         stream = torch.cuda.current_stream().cuda_stream
@@ -102,7 +117,8 @@ def launch(fn, device, args, outs):
     if err != 0:
         raise RuntimeError("%s launch failed: %s" % (name, lib.lookup_error_string(err).decode()))
     with _count_lock:
-        fn.launches += 1
+        for counter in counters:
+            setattr(fn, counter, getattr(fn, counter) + 1)
     return outs
 
 
@@ -134,14 +150,16 @@ classic_counts.launches = 0
 
 
 def tile_counts(
-    words: torch.Tensor, tile: torch.Tensor, smask: torch.Tensor, tile_rows: int
+    words: torch.Tensor, tile: torch.Tensor, smask: torch.Tensor, tile_rows: int,
+    exact: bool = True,
 ):
     """Tiled layouts (blocked, minimizer): per-query hit counts and exact AND.
 
     words int32[m_pad, W] with m_pad a multiple of ``tile_rows``; tile
     int32[B, K] (every id below m_pad / tile_rows); smask int64[B, K],
     bit s selecting row ``tile * tile_rows + s``, 0 for a padding k-mer
-    -> (counts int32[B, W * 32], exact int32[B, W]).
+    -> (counts int32[B, W * 32], exact int32[B, W]).  With ``exact``
+    False the counts-only build runs and exact is None.
     """
     if words.dim() != 2 or tile.dim() != 2:
         raise ValueError("words must be [m_pad, W] and tile [B, K]")
@@ -155,15 +173,21 @@ def tile_counts(
             % (MAX_TILE_ROWS, words.shape[0], tile_rows)
         )
     if device_kind(words) == "cpu":
-        return plain.blocked_counts(words, tile, smask, tile_rows)
+        return plain.blocked_counts(words, tile, smask, tile_rows, exact)
     w = words.shape[1]
-    if b == 0 or w == 0:
-        return count_outputs(words, b, w)
-    args = (words.data_ptr(), w, tile.data_ptr(), smask.data_ptr(), b, k, tile_rows)
-    return launch(tile_counts, words.device, args, count_outputs(words, b, w))
+    counts, exact_out = count_outputs(words, b, w)
+    if b and w:
+        args = (words.data_ptr(), w, tile.data_ptr(), smask.data_ptr(), b, k, tile_rows)
+        if exact:
+            launch(tile_counts, words.device, args, (counts, exact_out))
+        else:
+            launch(tile_counts, words.device, args, (counts,), "tile_counts_only",
+                   ("launches", "counts_only_launches"))
+    return counts, exact_out if exact else None
 
 
 tile_counts.launches = 0
+tile_counts.counts_only_launches = 0
 
 
 def grouped_tile_counts(
@@ -270,3 +294,66 @@ def cols_counts(
 
 
 cols_counts.launches = 0
+
+
+def gather_rows(mat: torch.Tensor, idx: torch.Tensor, rows_in_flight: int = 16) -> torch.Tensor:
+    """Random-row gather: mat int32[m, Wr], idx int32[n] (every id in
+    [0, m)) -> int32[n, Wr], row i a copy of ``mat[idx[i]]``.
+
+    ``rows_in_flight`` (one of ROWS_IN_FLIGHT) is how many rows a group of
+    lanes reads before it stores any, the counterpart of the Pallas
+    probe's ``--chunk``; it changes the speed, never the result.
+    """
+    if mat.dim() != 2 or idx.dim() != 1:
+        raise ValueError("mat must be [m, Wr] and idx [n]")
+    check_tensor("mat", mat, torch.int32, mat.shape, mat.device)
+    check_tensor("idx", idx, torch.int32, idx.shape, mat.device)
+    if rows_in_flight not in ROWS_IN_FLIGHT:
+        raise ValueError("rows_in_flight must be one of %s, got %r"
+                         % (ROWS_IN_FLIGHT, rows_in_flight))
+    if device_kind(mat) == "cpu":
+        return plain.gather_rows(mat, idx)
+    n, wr = idx.shape[0], mat.shape[1]
+    out = torch.empty((n, wr), dtype=torch.int32, device=mat.device)
+    if n == 0 or wr == 0:
+        return out
+    args = (mat.data_ptr(), wr, idx.data_ptr(), n, rows_in_flight)
+    return launch(gather_rows, mat.device, args, (out,))[0]
+
+
+gather_rows.launches = 0
+
+
+def tile_xor(
+    words: torch.Tensor, tile: torch.Tensor, valid: torch.Tensor, tile_rows: int
+) -> torch.Tensor:
+    """Per query, the XOR of the whole tiles of its valid k-mers.
+
+    words int32[m_pad, W] with m_pad a multiple of ``tile_rows`` (1..64);
+    tile int32[B, K] (every id below m_pad / tile_rows); valid bool[B, K]
+    -> int32[B, tile_rows, W]: the XOR of ``words[t * tile_rows : (t + 1)
+    * tile_rows]`` over the valid k-mers' tiles t (zeros when none is
+    valid).
+    """
+    if words.dim() != 2 or tile.dim() != 2:
+        raise ValueError("words must be [m_pad, W] and tile [B, K]")
+    b, k = tile.shape
+    check_tensor("words", words, torch.int32, words.shape, words.device)
+    check_tensor("tile", tile, torch.int32, (b, k), words.device)
+    check_tensor("valid", valid, torch.bool, (b, k), words.device)
+    if not 1 <= tile_rows <= MAX_TILE_ROWS or words.shape[0] % tile_rows:
+        raise ValueError(
+            "tile_rows must be in [1, %d] and divide the matrix's %d rows, got %d"
+            % (MAX_TILE_ROWS, words.shape[0], tile_rows)
+        )
+    if device_kind(words) == "cpu":
+        return plain.tile_xor(words, tile, valid, tile_rows)
+    w = words.shape[1]
+    out = torch.empty((b, tile_rows, w), dtype=torch.int32, device=words.device)
+    if b == 0 or w == 0:
+        return out
+    args = (words.data_ptr(), w, tile.data_ptr(), valid.data_ptr(), b, k, tile_rows)
+    return launch(tile_xor, words.device, args, (out,))[0]
+
+
+tile_xor.launches = 0

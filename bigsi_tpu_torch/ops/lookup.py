@@ -5,7 +5,9 @@ Counterparts of ``bigsi_tpu/ops/lookup.py`` (``and_rows_jnp``,
 ``batched_counts_jnp``, ``blocked_presence``, ``blocked_counts``,
 ``build_grouped_streams``, ``grouped_counts``, ``cols_dtype``,
 ``pack_tile_cols``, ``grouped_counts_cols``, ``cols_presence``),
-re-stated here because that module imports jax.  They are the
+re-stated here because that module imports jax, and the plain versions
+of the probes' kernels (``gather_rows``, ``tile_xor``, and
+``blocked_counts`` without exact).  They are the
 reference of the CUDA kernels in :mod:`bigsi_tpu_torch.ops.fused_lookup`:
 the kernels' wrappers run them for tensors on the CPU, the CPU tests
 hold them against the JAX functions, and ``chip_smoke.py`` holds the
@@ -30,18 +32,28 @@ GROUP_R = 6  # slots per grouped entry when the index persists no run_len
 U_BUCKET = 16  # grouped entries per query round up to a multiple of this
 
 
-def and_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Bitwise AND over ``dim`` (torch has no AND reduction), as a
-    halving tree; an empty axis gives all ones."""
+def _reduce_tree(x: torch.Tensor, dim: int, op, identity: int) -> torch.Tensor:
+    """Reduce ``dim`` with the bitwise ``op`` as a halving tree (torch
+    has no bitwise reductions); an empty axis gives ``identity``."""
     x = x.movedim(dim, 0)
     if x.shape[0] == 0:
-        return torch.full(x.shape[1:], ALL_ONES, dtype=x.dtype, device=x.device)
+        return torch.full(x.shape[1:], identity, dtype=x.dtype, device=x.device)
     while x.shape[0] > 1:
         if x.shape[0] % 2:
-            x = torch.cat([x, torch.full_like(x[:1], ALL_ONES)])
+            x = torch.cat([x, torch.full_like(x[:1], identity)])
         half = x.shape[0] // 2
-        x = x[:half] & x[half:]
+        x = op(x[:half], x[half:])
     return x[0]
+
+
+def and_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bitwise AND over ``dim``; an empty axis gives all ones."""
+    return _reduce_tree(x, dim, torch.bitwise_and, ALL_ONES)
+
+
+def xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bitwise XOR over ``dim``; an empty axis gives zeros."""
+    return _reduce_tree(x, dim, torch.bitwise_xor, 0)
 
 
 def counts_from_packed(packed: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -100,7 +112,7 @@ def narrow_bits(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return v.to(dtype)
 
 
-def _select_and(g: torch.Tensor, smask: torch.Tensor, tile_rows: int) -> torch.Tensor:
+def select_and(g: torch.Tensor, smask: torch.Tensor, tile_rows: int) -> torch.Tensor:
     """Gathered tiles int32[..., tile_rows, W], slot masks int64[...] ->
     int32[..., W], the AND of the rows whose bits are set (bit s = row
     s; bits at or past tile_rows select nothing)."""
@@ -114,19 +126,38 @@ def blocked_presence(words, tile, smask, tile_rows: int) -> torch.Tensor:
     tile ids int[K], slot masks int64[K] -> int32[K, W], the AND of the
     tile rows whose bits are set in each mask (bit s = row s)."""
     g = words.view(-1, tile_rows, words.shape[1])[tile.long()]  # [K, tile_rows, W]
-    return _select_and(g, smask, tile_rows)
+    return select_and(g, smask, tile_rows)
 
 
-def blocked_counts(words, tile, smask, tile_rows: int):
+def blocked_counts(words, tile, smask, tile_rows: int, exact: bool = True):
     """Tiled layouts, batched (plain kernel B): tile ids int[B, K], slot
     masks int64[B, K] (0 = padding k-mer) -> (counts int32[B, W * 32],
-    exact int32[B, W])."""
+    exact int32[B, W]); exact is None without ``exact``."""
     b, k = tile.shape
     packed = blocked_presence(
         words, tile.reshape(-1), smask.reshape(-1), tile_rows
     ).reshape(b, k, words.shape[1])
     valid = smask != 0
-    return counts_from_packed(packed, valid), exact_and_reduce(packed, valid)
+    return counts_from_packed(packed, valid), exact_and_reduce(packed, valid) if exact else None
+
+
+# -- the probes' kernels ----------------------------------------------------
+
+
+def gather_rows(mat, idx):
+    """Random-row gather (plain kernel F): int32[m, Wr], row ids int[n]
+    -> int32[n, Wr]."""
+    return mat[idx.long()]
+
+
+def tile_xor(words, tile, valid, tile_rows: int):
+    """Whole-tile XOR (plain kernel G): int32[m_pad, W] (m_pad a multiple
+    of ``tile_rows``), tile ids int[B, K], validity bool[B, K] ->
+    int32[B, tile_rows, W], per query the XOR of the tiles
+    ``words[t * tile_rows : (t + 1) * tile_rows]`` of its valid k-mers
+    (zeros when none is valid)."""
+    g = words.view(-1, tile_rows, words.shape[1])[tile.long()]  # [B, K, tile_rows, W]
+    return xor_reduce(torch.where(valid[..., None, None], g, 0), 1)
 
 
 # -- grouped (tile-deduplicated) streams of the minimizer layout ----------
@@ -183,7 +214,7 @@ def grouped_counts(words, utile, gmask, tile_rows: int):
     counts = torch.zeros((b, w * 32), dtype=torch.int32, device=words.device)
     exact = torch.full((b, w), ALL_ONES, dtype=torch.int32, device=words.device)
     for j in range(gmask.shape[2]):
-        p = _select_and(g, gmask[:, :, j], tile_rows)  # [B, U, W]
+        p = select_and(g, gmask[:, :, j], tile_rows)  # [B, U, W]
         valid = gmask[:, :, j] != 0
         counts += counts_from_packed(p, valid)
         exact &= exact_and_reduce(p, valid)

@@ -38,7 +38,24 @@ k-mers each), the shape of bench.py.  Phases:
    plain version on the inputs the facade gave the engine (kernel E on
    the streams of the facade's own counts_batch_kmers calls); kernel D
    once on the full-size matrix, and kernel C on the minimizer/16
-   streams of kernel E, over the row-major words D packs.
+   streams of kernel E, over the row-major words D packs;
+10. probes: the three probe entry points of bigsi_tpu_torch.scripts
+   (probe_multidma, bisect, microbench) run in-process over the
+   blocked/32 index's resident words (tile_rows 32: 4 KB tiles; S2 views
+   them as [6.25e6, 128]).  First kernels F (gather_rows), G (tile_xor)
+   and B's counts-only build are held bit for bit to their plain
+   versions at the probes' shapes and at ragged ones (gather_rows at
+   Wr 1, 33, 128 and 8,192, n 0, 1 and not a multiple of the rows in
+   flight, every rows-in-flight build, a misaligned view, the last row of
+   the full-size view; tile_xor and B's counts-only build at W 1 and 33,
+   tile_rows 8 to 64, all-padding queries, B or K of 0).  Then the launch
+   counts are set to 0 and the entry points run: the S2 gather (its
+   default shape, then 128 B, 512 B and 4 KB rows at kernel B's 50 MB per
+   batch), the bisection's kernel / compile / size subcommands and every
+   microbench case, each kernel checked against its plain version and
+   timed beside it, pallas-work (kernel C over the pre-gathered tiles)
+   checked equal to kernel C over the words; kernels F, G, B (both
+   builds) and C must have launched, and no other.
 
 Then one JSON line of the kernels, and last the JSON line
 {"ok": true, "device": {...}}.  Any failure exits non-zero; with no
@@ -51,7 +68,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import threading
 import time
@@ -81,14 +97,18 @@ DEVICE = "cuda"
 HEADLINE_R, HEADLINE_RUN = 20, 10
 DEFAULT_R, DEFAULT_RUN = 6, 6
 SOURCE = "bigsi_tpu_torch/csrc/lookup.cu"
-# the five kernels: (name, TPU kernel or XLA program it replaces)
+# the seven kernels: (name, TPU kernels or XLA program it replaces)
 KERNELS = (
     ("classic_counts", "bigsi_tpu/index/device_engine.py:89"),
-    ("tile_counts", "bigsi_tpu/ops/pallas_lookup.py:203"),
+    ("tile_counts", "bigsi_tpu/ops/pallas_lookup.py:203, scripts/bisect_kernel.py:49"),
     ("grouped_tile_counts",
-     "bigsi_tpu/ops/pallas_lookup.py:322, bigsi_tpu/ops/pallas_grouped.py:149"),
+     "bigsi_tpu/ops/pallas_lookup.py:322, bigsi_tpu/ops/pallas_grouped.py:149, "
+     "scripts/microbench.py:233"),
     ("pack_tile_cols", "bigsi_tpu/ops/lookup.py:338"),
     ("cols_counts", "bigsi_tpu/ops/lookup.py:419"),
+    ("gather_rows", "scripts/probe_multidma.py:62"),
+    ("tile_xor", "scripts/microbench.py:233, scripts/bisect_kernel.py:49, "
+     "scripts/bisect_compile.py:107, scripts/bisect_size.py:73"),
 )
 COLS_KERNELS = ("pack_tile_cols", "cols_counts")
 # the indexes of phases 4-8: name -> (config entries, kernels of its path)
@@ -101,6 +121,8 @@ INDEXES = {
     "minimizer/64": ({"layout": "minimizer", "tile-rows": 64}, ("grouped_tile_counts",)),
 }
 HEADLINE = "minimizer/16"
+PROBE_INDEX = "blocked/32"  # whose resident words the probes of phase 10 read
+PROBE_KERNELS = ("gather_rows", "tile_xor", "tile_counts", "grouped_tile_counts")
 # the indexes whose batches counts_batch_kmers must serve, with their r
 KMER_PATHS = {HEADLINE: HEADLINE_R, "minimizer/32": DEFAULT_R}
 
@@ -122,10 +144,9 @@ def kernel_fns():
 def phase_device() -> str:
     import torch
 
-    gpu = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    from bigsi_tpu_torch.scripts.timing import gpu_name_and_power
+
+    gpu = gpu_name_and_power()
     print(gpu)
     print(
         "phase 1 device: %s (%d visible), torch %s, CUDA %s"
@@ -466,28 +487,6 @@ def phase_slice(number: int, name: str, gen, rng):
 # -- phase 9 ------------------------------------------------------------
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of one call, each started with a cold L2, as a
-    batch of new queries finds it: a 512 MB write (ten times the L2)
-    runs before each call and keeps the device busy while the host
-    enqueues it, so the time excludes the host's launch overhead."""
-    import torch
-
-    flush = torch.empty(128 << 20, dtype=torch.int32, device=DEVICE)
-    fn()
-    total = 0.0
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
-
-
 def search_batch_layers(port, seqs, reps: int) -> list[dict]:
     """Times of `reps` search_batch calls of the whole batch, each split
     by the facade's own timers inside that call: the engine's
@@ -529,8 +528,10 @@ def engine_inputs(port, seqs, method: str):
 
 
 def timed_kernel(name, kernel, reference, args, errors, case):
+    from bigsi_tpu_torch.scripts.timing import cuda_ms
+
     errors.compare(name, kernel(*args), reference(*args), case)
-    return cuda_ms(lambda: kernel(*args), 20), cuda_ms(lambda: reference(*args), 5)
+    return cuda_ms(lambda: kernel(*args), 20, DEVICE), cuda_ms(lambda: reference(*args), 5, DEVICE)
 
 
 def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
@@ -541,6 +542,7 @@ def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
     from bigsi_tpu_torch.index.device_engine import kmer_streams_to_device, load_words, tile_streams
     from bigsi_tpu_torch.ops import fused_lookup as fl
     from bigsi_tpu_torch.ops import lookup as plain
+    from bigsi_tpu_torch.scripts.timing import cuda_ms
 
     kernel_ms, kmer_streams = {}, {}
     for name, (port, seqs) in runs.items():
@@ -604,8 +606,8 @@ def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
     args = (words, tile_rows)
     errors.compare("pack_tile_cols", (fl.pack_tile_cols(*args),),
                    (plain.pack_tile_cols(*args),), "full size")
-    d_ms = cuda_ms(lambda: fl.pack_tile_cols(*args), 5)
-    d_plain = cuda_ms(lambda: plain.pack_tile_cols(*args), 2)
+    d_ms = cuda_ms(lambda: fl.pack_tile_cols(*args), 5, DEVICE)
+    d_plain = cuda_ms(lambda: plain.pack_tile_cols(*args), 2, DEVICE)
     kernel_ms["pack_tile_cols"] = (d_ms, d_plain)
     print("phase %d times pack_tile_cols [%s]: m=%d W=%d tile_rows=%d, %.4f ms vs plain "
           "PyTorch %.4f ms (%.1f GB/s read + write)"
@@ -630,6 +632,139 @@ def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
     print("phase %d memory [%s]: peak %.2f GB allocated on the device"
           % (number, gpu, torch.cuda.max_memory_allocated() / 1e9), flush=True)
     return kernel_ms
+
+
+# -- phase 10 -----------------------------------------------------------
+
+
+def probe_checks(gen, errors: Errors, words) -> int:
+    """Kernels F (gather_rows), G (tile_xor) and B's counts-only build
+    against their plain versions at the probes' shapes, over the
+    full-size ``words``, and at ragged ones; -> the number of cases."""
+    import torch
+
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import lookup as plain
+
+    dev = words.device
+    cases = 0
+
+    def rand_words(m, w):
+        return torch.randint(-2**31, 2**31, (m, w), generator=gen, device=dev, dtype=torch.int32)
+
+    def gather(mat, idx, rows, case):
+        errors.compare("gather_rows", (fl.gather_rows(mat, idx, rows),),
+                       (plain.gather_rows(mat, idx),), case)
+
+    def xor(w, tile, valid, tile_rows, case):
+        errors.compare("tile_xor", (fl.tile_xor(w, tile, valid, tile_rows),),
+                       (plain.tile_xor(w, tile, valid, tile_rows),), case)
+
+    def counts_only(w, tile, smask, tile_rows, case):
+        got, none = fl.tile_counts(w, tile, smask, tile_rows, exact=False)
+        check(none is None, "the counts-only build returns no exact")
+        errors.compare("tile_counts", (got,),
+                       (plain.blocked_counts(w, tile, smask, tile_rows, exact=False)[0],),
+                       "counts-only " + case)
+        check(torch.equal(got, fl.tile_counts(w, tile, smask, tile_rows)[0]),
+              "counts-only %s: the same counts as the exact build" % case)
+
+    # gather_rows: S2's view of the full-size words, its last row included
+    view = words.view(-1, 128)
+    idx = torch.randint(0, view.shape[0], (4099,), generator=gen, device=dev, dtype=torch.int32)
+    idx[:2] = torch.tensor([view.shape[0] - 1, 0], dtype=torch.int32)
+    gather(view, idx, 16, "full size [%d, 128] n=4099 with the last row" % view.shape[0])
+    cases += 1
+    for wr in (1, 33, 128, 8192):
+        m = max(64, (1 << 22) // wr)
+        mat = rand_words(m, wr)
+        for n in (0, 1, 37, 1000):
+            idx = torch.randint(0, m, (n,), generator=gen, device=dev, dtype=torch.int32)
+            if n:
+                idx[-1] = m - 1
+            for rows in fl.ROWS_IN_FLIGHT:
+                gather(mat, idx, rows, "Wr=%d n=%d rows=%d" % (wr, n, rows))
+                cases += 1
+    flat = rand_words(1000 * 128 + 1, 1).view(-1)
+    mat = flat[1:].view(1000, 128)  # 4 bytes off 16-byte alignment: word loads
+    idx = torch.randint(0, 1000, (333,), generator=gen, device=dev, dtype=torch.int32)
+    gather(mat, idx, 8, "Wr=128 misaligned view")
+    cases += 1
+
+    # tile_xor and the counts-only build at the bisection's shape
+    tile = torch.randint(0, words.shape[0] // 32, (B, 512), generator=gen, device=dev,
+                         dtype=torch.int32)
+    valid = torch.rand((B, 512), generator=gen, device=dev) >= 0.05
+    xor(words, tile, valid, 32, "full size B=%d K=512 pad=0.05" % B)
+    smask = torch.where(valid, 7, 0).long()
+    counts_only(words, tile, smask, 32, "full size B=%d K=512 mask 7" % B)
+    cases += 2
+    for w in (1, 33):
+        for tile_rows in (8, 16, 32, 64):
+            mat = rand_words(tile_rows * 3001, w)
+            for b, k, pad in ((5, 700, 0.3), (3, 0, 0.0), (2, 64, 1.0), (0, 16, 0.0),
+                              (2, 3000, 0.1)):
+                case = "W=%d tile_rows=%d B=%d K=%d pad=%.1f" % (w, tile_rows, b, k, pad)
+                tile, smask = random_tile_inputs(gen, b, k, 3001, tile_rows, pad, dev)
+                xor(mat, tile, smask != 0, tile_rows, case)
+                counts_only(mat, tile, smask, tile_rows, case)
+                cases += 2
+    torch.cuda.synchronize()
+    return cases
+
+
+def phase_probes(number: int, gpu: str, runs, gen, errors: Errors, fns) -> tuple[dict, dict]:
+    """-> ({kernel: (ms, plain ms)} of F and G, {kernel: launches} of the
+    probes' run)."""
+    import torch
+
+    from bigsi_tpu_torch.scripts import bisect, microbench, probe_multidma
+
+    words = runs[PROBE_INDEX][0].engine.words
+    cases = probe_checks(gen, errors, words)
+    print("phase %d probes: gather_rows, tile_xor and tile_counts' counts-only build "
+          "bit-exact with their plain versions in %d cases" % (number, cases), flush=True)
+
+    for fn in fns.values():
+        fn.launches = 0
+    fns["tile_counts"].counts_only_launches = 0
+    t0 = time.perf_counter()
+    # S2: random 512 B rows of the words viewed as [6.25e6, 128]
+    view = words.view(-1, 128)
+    idx = torch.randint(0, view.shape[0], (65536,), generator=gen, device=words.device,
+                        dtype=torch.int32)
+    s2 = probe_multidma.probe(view, idx, 16, gpu)
+    # fetch rate against row size, 128 B to 4 KB rows, each reading the
+    # 50 MB of 128 B row segments kernel B reads per batch
+    for wr in (32, 128, 1024):
+        rows = words.view(-1, wr)
+        n = B * 512 * H * 128 // (wr * 4)
+        idx = torch.randint(0, rows.shape[0], (n,), generator=gen, device=words.device,
+                            dtype=torch.int32)
+        probe_multidma.probe(rows, idx, 16, gpu)
+    # S3-S5 over the words' first T tiles
+    tiles = min(bisect.T, words.shape[0] // bisect.TILE_ROWS)
+    s3 = bisect.run_kernel(words, tiles, gpu)
+    s4 = bisect.run_compile(words, tiles, gpu, bisect.B)
+    bisect.run_size(words, tiles, gpu)
+    # S1 and every other microbench case
+    ctx = microbench.Ctx(B, 512, H, DEFAULT_RUN, words.device, words=words)
+    for case in microbench.CASES.values():
+        case(ctx)
+    torch.cuda.synchronize()
+    counted = {k: fn.launches for k, fn in fns.items()}
+    counted_only = fns["tile_counts"].counts_only_launches
+    check(all(counted[k] > 0 for k in PROBE_KERNELS) and counted_only > 0 and
+          not any(n for k, n in counted.items() if k not in PROBE_KERNELS),
+          "the probes launched %s (and B's counts-only build) and no other: %s, counts-only %d"
+          % (PROBE_KERNELS, counted, counted_only))
+    print("phase %d probes [%s]: entry points ran in %.1f s (nvcc %.2f s); launches %s, "
+          "tile_counts counts-only %d"
+          % (number, gpu, time.perf_counter() - t0, s4["nvcc_s"], json.dumps(counted),
+             counted_only), flush=True)
+    kernel_ms = {"gather_rows": (s2["ms"], s2["plain_ms"]), "tile_xor": s3["k1 tile_xor"]}
+    counted["counts_only"] = counted_only
+    return kernel_ms, counted
 
 
 def main() -> None:
@@ -664,13 +799,21 @@ def main() -> None:
             launches[k] += counted[k]
 
     kernel_ms = phase_times(number + 1, gpu, runs, errors)
+    probe_ms, counted = phase_probes(number + 2, gpu, runs, gen, errors, fns)
+    kernel_ms.update(probe_ms)
+    for k in PROBE_KERNELS:
+        launches[k] += counted[k]
     check("jax" not in sys.modules, "jax was never imported")
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors.max[name],
          "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1]}
         for name, replaces in KERNELS
-    ]}))
+    ]
+    for k in kernels:
+        if k["name"] == "tile_counts":
+            k["counts_only_launches"] = counted["counts_only"]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
