@@ -35,8 +35,9 @@
 //   write (template kExact = false): the counts-only stage k2 of the
 //   bisection probe scripts/bisect_kernel.py:49 (S3).
 //
-// Kernels F and G, gather_rows and tile_xor, are the probes' kernels,
-// described at their code below.
+// Kernels F and G, gather_rows and tile_xor, are the probes' kernels, and
+// kernel H, seq_streams, is the seq serving arm's prep: each is described
+// at its code below.
 //
 // What bounds kernels A, B and C on an H100: gathered bytes, at random rows.  At
 // m = 2.5e7 and W = 32 the matrix is 3.2 GB, far beyond the 50 MB L2, so
@@ -620,6 +621,222 @@ tile_xor_kernel(const unsigned* __restrict__ words, int W, const int32_t* __rest
   }
 }
 
+// -- the seq serving arm's prep: kernel H --------------------------------
+//
+// seq_streams (kernel H) replaces the XLA program
+// bigsi_tpu/ops/prep_jax.py:prep_streams_device: padded ASCII query bytes
+// (uint8[B, L], lens int32[B]) -> the grouped streams of slot scheme 3
+// that kernel E counts (utile int32[B, U], gmask int64[B, U, R] holding
+// 32-bit masks, n_valid int32[B]) and per query the number of entries it
+// needs (u_count int32[B]; the caller's ok is u_count <= U everywhere).
+// k-mer i of query b is valid when i < lens[b] - k + 1.  Per valid k-mer:
+// the forward and reverse-complement 2-bit codes (A and other bytes 0,
+// C 1, G 2, T 3; only ACGT are complemented), the slot mask (bit
+// (hv >> 6j) & (tile_rows - 1) for j < h, hv the splitmix64 of the
+// unsigned minimum of the two codes) and the tile (the unsigned minimum
+// of splitmix64(canonical s-mer ^ seed) over the w = k - s + 1 s-mers the
+// k-mer spans, modulo num_tiles).  A k-mer whose forward code occurred at
+// an earlier valid position is a duplicate: it keeps its slot with mask 0
+// and n_valid does not count it.  Runs of one tile open an entry at their
+// start and every R positions after (pos % R == 0); slot pos % R of the
+// entry holds the k-mer.  Entries at or past U are not written; what is
+// not written is 0.
+//
+// One block per query.  The query's bytes, its k-mers' forward codes,
+// masks and tiles, and the s-mer hashes live in shared memory (about 120
+// KB at L = 4,096, the longest query the engine's guard admits; opted in
+// past 48 KB).  Every pass is over positions, strided across the
+// threads: the s-mer hashes, then codes, masks and the sliding minimum
+// (w reads per k-mer), then the exact first-occurrence dedup, a pairwise
+// scan of the earlier codes (lanes read one code at a time, so a warp's
+// reads are broadcasts).  Run starts come from a block max-scan and entry
+// ids from a sum-scan, each thread owning a contiguous chunk of
+// positions, and every k-mer is then scattered straight to its slot.
+// What bounds it is the dedup: NK^2 / 2 compares per query, about 150,000
+// at L = 576 (the engine's guard bounds B * NK^2 for long queries).  On
+// an H100 80GB HBM3 at 700 W it takes 0.04 ms at B = 256, L = 576 (its
+// plain version 3.5-5.3 ms) and 0.61 ms at B = 8, L = 4,096, where 8
+// blocks leave most SMs idle.  The
+// JAX program's uint32-pair arithmetic, nibble long division, one-hot
+// compare-sums and NK chunking served the TPU and are not ported: u64 is
+// native here.
+
+constexpr int kSeqThreads = 512;
+constexpr unsigned long long kSmGamma = 0x9E3779B97F4A7C15ull;
+constexpr unsigned long long kSmMul1 = 0xBF58476D1CE4E5B9ull;
+constexpr unsigned long long kSmMul2 = 0x94D049BB133111EBull;
+
+__device__ __forceinline__ unsigned long long splitmix64(unsigned long long z) {
+  z += kSmGamma;
+  z = (z ^ (z >> 30)) * kSmMul1;
+  z = (z ^ (z >> 27)) * kSmMul2;
+  return z ^ (z >> 31);
+}
+
+__device__ __forceinline__ unsigned long long base_code(uint8_t c) {
+  return c == 'C' ? 1ull : c == 'G' ? 2ull : c == 'T' ? 3ull : 0ull;
+}
+
+__device__ __forceinline__ unsigned long long comp_code(uint8_t c) {
+  return c == 'A' ? 3ull : c == 'C' ? 2ull : c == 'G' ? 1ull : 0ull;
+}
+
+// The forward code of bytes p[0, len) (len <= 32) into *fwd; returns the
+// canonical code, the unsigned minimum of the forward and
+// reverse-complement codes.
+__device__ __forceinline__ unsigned long long canonical_code(const uint8_t* p, int len,
+                                                             unsigned long long* fwd) {
+  unsigned long long f = 0ull, rc = 0ull;
+  for (int j = 0; j < len; ++j) {
+    f = (f << 2) | base_code(p[j]);
+    rc |= comp_code(p[j]) << (2 * j);
+  }
+  *fwd = f;
+  return f < rc ? f : rc;
+}
+
+struct MaxOp {
+  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
+};
+struct SumOp {
+  __device__ int operator()(int a, int b) const { return a + b; }
+};
+
+// Exclusive scan of one value per thread in thread order, with op and
+// its identity; every thread of the block must call it.  s_warp holds 32
+// ints of scratch.
+template <typename Op>
+__device__ int block_exclusive_scan(int v, int identity, Op op, int* s_warp) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  int x = v;  // inclusive within the warp
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kAllOnes, x, d);
+    if (lane >= d) x = op(x, y);
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int t = lane < nwarps ? s_warp[lane] : identity;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kAllOnes, t, d);
+      if (lane >= d) t = op(t, y);
+    }
+    s_warp[lane] = t;  // inclusive over the warps
+  }
+  __syncthreads();
+  int before = __shfl_up_sync(kAllOnes, x, 1);
+  if (lane == 0) before = identity;
+  if (warp > 0) before = op(s_warp[warp - 1], before);
+  __syncthreads();  // s_warp is free for the next scan
+  return before;
+}
+
+// Dynamic shared memory: [NK] forward codes and [NS] s-mer hashes (u64),
+// [NK] tiles, [NK] masks, [NK] run starts then positions in run (32-bit),
+// then the [L] query bytes.
+__global__ void __launch_bounds__(kSeqThreads)
+seq_streams_kernel(const uint8_t* __restrict__ seqs, int L, const int32_t* __restrict__ lens,
+                   int k, int s, unsigned long long seed, unsigned long long num_tiles, int h,
+                   int tile_rows, int R, int U, int32_t* __restrict__ utile,
+                   int64_t* __restrict__ gmask, int32_t* __restrict__ n_valid,
+                   int32_t* __restrict__ u_count) {
+  extern __shared__ unsigned long long s_code[];
+  __shared__ int s_warp[32];
+  __shared__ int s_appended;
+  const int nk = L - k + 1;
+  const int w = k - s + 1;
+  unsigned long long* s_hash = s_code + nk;
+  int32_t* s_tile = reinterpret_cast<int32_t*>(s_hash + (L - s + 1));
+  unsigned* s_mask = reinterpret_cast<unsigned*>(s_tile + nk);
+  int32_t* s_pos = reinterpret_cast<int32_t*>(s_mask + nk);
+  uint8_t* s_seq = reinterpret_cast<uint8_t*>(s_pos + nk);
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nv = max(0, min(nk, lens[b] - (k - 1)));  // valid k-mers: a prefix
+  int32_t* q_utile = utile + static_cast<size_t>(b) * U;
+  int64_t* q_gmask = gmask + static_cast<size_t>(b) * U * R;
+  for (int i = tid; i < U; i += blockDim.x) q_utile[i] = 0;
+  for (int i = tid; i < U * R; i += blockDim.x) q_gmask[i] = 0;
+  const uint8_t* q_seq = seqs + static_cast<size_t>(b) * L;
+  for (int i = tid; i < L; i += blockDim.x) s_seq[i] = q_seq[i];
+  if (tid == 0) s_appended = 0;
+  __syncthreads();
+
+  // the seeded s-mer hashes of every window a valid k-mer spans
+  const int nh = nv > 0 ? nv + w - 1 : 0;
+  unsigned long long fwd;
+  for (int p = tid; p < nh; p += blockDim.x) {
+    s_hash[p] = splitmix64(canonical_code(s_seq + p, s, &fwd) ^ seed);
+  }
+  __syncthreads();
+
+  // per k-mer: forward code, slot mask, minimizer tile
+  const unsigned long long slot_bits = static_cast<unsigned long long>(tile_rows - 1);
+  for (int i = tid; i < nv; i += blockDim.x) {
+    const unsigned long long hv = splitmix64(canonical_code(s_seq + i, k, &fwd));
+    unsigned m = 0u;
+    for (int j = 0; j < h; ++j) m |= 1u << static_cast<int>((hv >> (6 * j)) & slot_bits);
+    unsigned long long mn = s_hash[i];
+    for (int j = 1; j < w; ++j) mn = min(mn, s_hash[i + j]);
+    s_code[i] = fwd;
+    s_mask[i] = m;
+    s_tile[i] = static_cast<int32_t>(mn % num_tiles);
+  }
+  __syncthreads();
+
+  // exact dedup: the first occurrence of a forward code wins
+  int appended = 0;
+  for (int i = tid; i < nv; i += blockDim.x) {
+    const unsigned long long me = s_code[i];
+    bool dup = false;
+    for (int j = 0; j < i && !dup; ++j) dup = s_code[j] == me;
+    if (dup) {
+      s_mask[i] = 0u;
+    } else {
+      ++appended;
+    }
+  }
+  if (appended) atomicAdd(&s_appended, appended);
+  __syncthreads();
+
+  // run starts: a max-scan of (i where a run starts, else -1) over the
+  // threads' contiguous chunks [c0, c1)
+  const int per = (nv + blockDim.x - 1) / blockDim.x;
+  const int c0 = min(nv, tid * per);
+  const int c1 = min(nv, c0 + per);
+  int start = -1;
+  for (int i = c0; i < c1; ++i) {
+    if (i == 0 || s_tile[i] != s_tile[i - 1]) start = i;
+    s_pos[i] = start;
+  }
+  const int carry = block_exclusive_scan(start, -1, MaxOp(), s_warp);
+  // positions in run, and the entries each chunk opens
+  int opened = 0;
+  for (int i = c0; i < c1; ++i) {
+    const int pos = i - max(s_pos[i], carry);
+    s_pos[i] = pos;
+    opened += pos % R == 0;
+  }
+  const int before = block_exclusive_scan(opened, 0, SumOp(), s_warp);
+
+  // scatter: each k-mer to its slot, each entry's first k-mer its tile
+  int entry = before - 1;
+  for (int i = c0; i < c1; ++i) {
+    const int slot = s_pos[i] % R;
+    if (slot == 0) ++entry;
+    if (entry < U) {
+      if (slot == 0) q_utile[entry] = s_tile[i];
+      q_gmask[static_cast<size_t>(entry) * R + slot] = static_cast<int64_t>(s_mask[i]);
+    }
+  }
+  if (tid == blockDim.x - 1) {
+    u_count[b] = before + opened;
+    n_valid[b] = s_appended;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -760,6 +977,40 @@ int cols_counts(const void* cols, int W, int elem_bytes, const void* utile,
                                           exact, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// seqs uint8[B, L]; lens int32[B]; utile int32[B, U]; gmask int64[B, U, R];
+// n_valid int32[B]; u_count int32[B].  1 <= s <= k <= 32, L >= k,
+// 1 <= h <= 10, tile_rows a power of two up to 32, 1 <= num_tiles < 2^31;
+// the shared memory of one query's state must fit the device.
+int seq_streams(const void* seqs, int B, int L, const void* lens, int k, int s,
+                unsigned long long seed, int64_t num_tiles, int h, int tile_rows, int R, int U,
+                void* utile, void* gmask, void* n_valid, void* u_count, void* stream) {
+  if (B <= 0 || k < 1 || k > 32 || s < 1 || s > k || L < k || h < 1 || h > 10 ||
+      tile_rows < 1 || tile_rows > 32 || (tile_rows & (tile_rows - 1)) || num_tiles < 1 ||
+      num_tiles >= (int64_t{1} << 31) || R < 1 || U < 0 ||
+      static_cast<int64_t>(U) * R > 0x7FFFFFFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t nk = static_cast<size_t>(L - k + 1);
+  const size_t smem = (nk + static_cast<size_t>(L - s + 1)) * sizeof(unsigned long long) +
+                      nk * 3 * sizeof(int32_t) + static_cast<size_t>(L);
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem + 256 > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(seq_streams_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  seq_streams_kernel<<<B, kSeqThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(seqs), L, static_cast<const int32_t*>(lens), k, s, seed,
+      static_cast<unsigned long long>(num_tiles), h, tile_rows, R, U,
+      static_cast<int32_t*>(utile), static_cast<int64_t*>(gmask),
+      static_cast<int32_t*>(n_valid), static_cast<int32_t*>(u_count));
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* lookup_error_string(int code) {

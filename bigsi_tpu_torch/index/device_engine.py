@@ -22,14 +22,22 @@ tile ``t`` is rows ``t * tile_rows ... t * tile_rows + tile_rows - 1``.
   kernel C (:func:`~bigsi_tpu_torch.ops.fused_lookup.grouped_tile_counts`)
   counts over the row-major words.
 
-On a cols engine with slot scheme 2 or 3 and the native library,
-``counts_batch_kmers`` serves the facade's batches straight from ASCII
-k-mers: bigsi_tpu's threaded native prep builds the grouped streams, the
-next chunk's prep overlapping the current chunk's kernel.  A single
-query reduces through its layout's kernel as a batch of one; scoring's
-presence rows come from the plain ops.  The seq serving path is not
-ported, so ``supports_seq_batch`` is False.  PyTorch compiles nothing
-per shape, so no bucketing of K or B is needed.
+On a cols engine with slot scheme 3, ``counts_batch_seqs`` (the seq
+serving arm) serves the facade's unscored all-ACGT batches from padded
+query bytes, all on the card: kernel H
+(:func:`~bigsi_tpu_torch.ops.fused_lookup.seq_streams`) builds the
+grouped streams, kernel E counts them, and one read of ``ok`` is the
+only sync before the counts come back; a batch that overflows the entry
+budget, or that the geometry guard refuses, returns None and takes the
+host paths.  On a cols engine with slot scheme 2 or 3 and the native
+library, ``counts_batch_kmers`` serves the other batches straight from
+ASCII k-mers: bigsi_tpu's threaded native prep builds the grouped
+streams, the next chunk's prep overlapping the current chunk's kernel.
+A single query reduces through its layout's kernel as a batch of one;
+scoring's presence rows come from the plain ops.  PyTorch compiles
+nothing per shape, so no bucketing of K is needed; the seq arm keeps
+the JAX engine's byte and batch buckets, which its guard and its
+per-bucket budgets are defined on.
 """
 
 from __future__ import annotations
@@ -55,11 +63,43 @@ from bigsi_tpu_torch.ops.fused_lookup import (
     cols_counts,
     grouped_tile_counts,
     pack_tile_cols,
+    seq_streams,
     tile_counts,
 )
 
 TILED_LAYOUTS = ("blocked", "minimizer")
 LOAD_CHUNK_ROWS = 1 << 20  # rows per host->device copy in load_words
+
+# long-query guards of the seq arm (bigsi_tpu/index/device_engine.py):
+# a hard NK ceiling, and a B*NK^2 budget (256 queries of 1,024 k-mers)
+# that bounds kernel H's quadratic dedup
+SEQ_MAX_NK = 4096
+SEQ_QUAD_WORK_BUDGET = 256 * 1024 * 1024
+
+
+def seq_batch_geometry(seqs, lens, k: int, window: int):
+    """The JAX engine's bucketing and guards for ``counts_batch_seqs``:
+    64-byte length buckets, a power-of-two batch bucket (at least 8),
+    the quadratic-work guard and the grouped-entry budget.  Returns None
+    when the batch must take a host path, else (padded uint8[BB, LB],
+    lens int32[BB], lb, u_cap); padding bytes are ``A`` and padding
+    queries have length 0."""
+    b, l = seqs.shape
+    lb = max(k, ((l + 63) // 64) * 64)
+    bb = 8
+    while bb < b:
+        bb *= 2
+    nk = lb - k + 1
+    if nk > SEQ_MAX_NK:
+        return None
+    if nk > 1024 and bb * nk * nk > SEQ_QUAD_WORK_BUDGET:
+        return None
+    padded = np.full((bb, lb), ord("A"), dtype=np.uint8)
+    padded[:b, :l] = seqs
+    lens_b = np.zeros(bb, dtype=np.int32)
+    lens_b[:b] = lens
+    u_cap = DeviceEngine._seq_u_cap(lb - k + 1, window)
+    return padded, lens_b, lb, u_cap
 
 
 def resolve_device(device=None) -> torch.device:
@@ -122,8 +162,25 @@ def kmer_streams_to_device(prep, device):
     return utile, gmask.long() & 0xFFFFFFFF, n_valid
 
 
+def _counts_batch_seqs(cols, seqs, lens, *, k, s, num_tiles, h, tile_rows, r, u_cap, seed):
+    """Padded query bytes to per-sample hit counts on ``cols``' device:
+    kernel H builds the grouped streams, kernel E counts them.  seqs
+    uint8[B, L], lens int32[B] -> (counts int32[B, N], n_valid int32[B]
+    distinct k-mers, ok bool[]), ``ok`` False when a query needs more than
+    ``u_cap`` grouped entries (the counts are then not valid)."""
+    utile, gmask, n_valid, ok = seq_streams(
+        seqs, lens, k=k, s=s, num_tiles=num_tiles, h=h, tile_rows=tile_rows, r=r,
+        u_cap=u_cap, seed=seed,
+    )
+    counts, _ = cols_counts(cols, utile, gmask, n_valid)
+    return counts, n_valid, ok
+
+
 class DeviceEngine:
     SERVE_CHUNK = 256  # queries per kernel launch in counts_batch_kmers
+    # clean big-budget batches (per length bucket) before
+    # counts_batch_seqs retries the tight grouped-entry budget
+    SEQ_CAP_DECAY = 64
 
     def __init__(
         self, matrix: BitSliceMatrix, device=None, layout: str = "classic",
@@ -144,6 +201,9 @@ class DeviceEngine:
         if run_len is None and layout == "minimizer":
             run_len = default_run_len(minimizer_window)
         self.run_len = run_len
+        # counts_batch_seqs' escalation state: {padded length lb:
+        # big-budget batches left before the tight budget is retried}
+        self._seq_cap_esc = {}
         self.words = load_words(
             np.asarray(matrix.words), self.device, tile_rows if self.tiled else None
         )
@@ -307,8 +367,81 @@ class DeviceEngine:
                 out[q0:q1] = self._dispatch_kmer_chunk(ready, num_cols)
         return out
 
+    # -- the seq serving arm (minimizer cols, slot scheme 3)
+
     def supports_seq_batch(self) -> bool:
-        return False  # the seq arm (counts_batch_seqs) is not ported yet
+        """True when ``counts_batch_seqs`` serves: minimizer layout, slot
+        scheme 3, cols resident, power-of-two tile_rows and fewer than
+        2^28 tiles (the JAX engine's conditions)."""
+        num_tiles = max(1, self.matrix.num_rows // self.tile_rows)
+        return (
+            self.layout == "minimizer"
+            and self.slot_scheme == 3
+            and self.cols is not None
+            and self.tile_rows & (self.tile_rows - 1) == 0
+            and num_tiles < (1 << 28)
+        )
+
+    @staticmethod
+    def _seq_u_cap(nk: int, window: int) -> int:
+        """The safe grouped-entry budget: expected entries nk / ((w + 1) /
+        2) with 1.4x headroom, a multiple of 8, at most nk."""
+        expect = nk / max(1.0, (window + 1) / 2.0)
+        cap = int(expect * 1.4) + 8
+        cap = ((cap + 7) // 8) * 8
+        return min(nk, cap)
+
+    @staticmethod
+    def _seq_u_tight(nk: int, window: int) -> int:
+        """The first-try budget, about 1.15x the expected entries: most
+        batches fit, and one that does not costs one more launch."""
+        expect = nk / max(1.0, (window + 1) / 2.0)
+        return min(nk, ((int(expect * 1.15) + 4 + 7) // 8) * 8)
+
+    def counts_batch_seqs(
+        self, seqs: np.ndarray, lens: np.ndarray, k: int, h: int, num_cols: int
+    ):
+        """Padded ASCII query bytes straight to per-query hit counts, on
+        the card: seqs uint8[B, L] (rows padded with any byte), lens
+        int32[B] -> (counts int64[B, num_cols], n_valid int32[B] distinct
+        k-mers per query), or None when the geometry guard refuses the
+        batch or a query overflows the safe entry budget (the caller
+        falls back to the host paths).  ACGT-only bytes are the caller's
+        contract.  The tight budget is tried first; an overflow escalates
+        to the safe one in the same call and keeps it for the batch's
+        length bucket for SEQ_CAP_DECAY clean batches."""
+        b, _ = seqs.shape
+        if b == 0:
+            return np.zeros((0, num_cols), dtype=np.int64), np.zeros(0, dtype=np.int32)
+        s = window_to_s(k, self.minimizer_window) or default_minimizer_s(k)
+        window = k - s + 1
+        num_tiles = max(1, self.matrix.num_rows // self.tile_rows)
+        geom = seq_batch_geometry(seqs, lens, k, window)
+        if geom is None:
+            return None
+        padded, lens_b, lb, u_big = geom
+        u_small = self._seq_u_tight(lb - k + 1, window)
+        esc = self._seq_cap_esc
+        remaining = esc.get(lb, 0)
+        caps = [u_big] if remaining > 0 or u_small >= u_big else [u_small, u_big]
+        pd = self._to_device(padded, np.uint8)
+        ld = self._to_device(lens_b, np.int32)
+        for cap in caps:
+            counts, n_valid, ok = _counts_batch_seqs(
+                self.cols, pd, ld, k=k, s=s, num_tiles=num_tiles, h=h,
+                tile_rows=self.tile_rows, r=self.run_len or plain.GROUP_R, u_cap=cap,
+                seed=MINIMIZER_SEED,
+            )
+            if bool(ok):  # the one sync before the counts
+                if cap == u_big and remaining > 0:
+                    esc[lb] = remaining - 1
+                return (
+                    counts[:b, :num_cols].cpu().numpy().astype(np.int64),
+                    n_valid[:b].cpu().numpy(),
+                )
+            if cap != u_big:
+                esc[lb] = self.SEQ_CAP_DECAY
+        return None
 
 
 class _PackedQuery:

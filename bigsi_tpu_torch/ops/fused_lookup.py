@@ -26,9 +26,13 @@
   of ``scripts/microbench.py:233`` (S1).
 * ``tile_counts(..., exact=False)`` launches kernel B's counts-only
   build, the k2 stage of ``scripts/bisect_kernel.py:49`` (S3).
+* :func:`seq_streams` is kernel H.  It replaces the XLA program
+  ``bigsi_tpu/ops/prep_jax.py:prep_streams_device``, the seq serving
+  arm's prep from query bytes to the grouped streams kernel E counts.
 
 A wrapper checks its arguments, then runs the plain version from
-:mod:`bigsi_tpu_torch.ops.lookup` for tensors on the CPU, and launches
+:mod:`bigsi_tpu_torch.ops.lookup` (kernel H's from
+:mod:`bigsi_tpu_torch.ops.prep`) for tensors on the CPU, and launches
 its kernel for tensors on a CUDA device.  It never falls back: a build
 or launch that fails raises.  Each wrapper counts its kernel's launches
 in its ``launches`` attribute; ``tile_counts`` also counts its
@@ -43,6 +47,7 @@ import threading
 import torch
 
 from bigsi_tpu_torch.ops import lookup as plain
+from bigsi_tpu_torch.ops import prep
 from bigsi_tpu_torch.ops._build import load
 
 MAX_TILE_ROWS = 64  # slot masks are 64 bits wide
@@ -66,9 +71,11 @@ def _library() -> ctypes.CDLL:
     lib.tile_counts_only.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, ptr, ptr]
     lib.gather_rows.argtypes = [ptr, i32, ptr, i64, i32, ptr, ptr]
     lib.tile_xor.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, ptr, ptr]
+    lib.seq_streams.argtypes = [ptr, i32, i32, ptr, i32, i32, ctypes.c_uint64, i64, i32, i32,
+                                i32, i32, ptr, ptr, ptr, ptr, ptr]
     for fn in (lib.classic_counts, lib.tile_counts, lib.grouped_tile_counts,
                lib.pack_tile_cols, lib.cols_counts, lib.tile_counts_only,
-               lib.gather_rows, lib.tile_xor):
+               lib.gather_rows, lib.tile_xor, lib.seq_streams):
         fn.restype = i32
     lib.lookup_error_string.argtypes = [i32]
     lib.lookup_error_string.restype = ctypes.c_char_p
@@ -357,3 +364,41 @@ def tile_xor(
 
 
 tile_xor.launches = 0
+
+
+def seq_streams(
+    seqs: torch.Tensor, lens: torch.Tensor, *, k: int, s: int, num_tiles: int, h: int,
+    tile_rows: int, r: int, u_cap: int, seed: int = prep.MINIMIZER_SEED,
+):
+    """Padded query bytes -> grouped streams of slot scheme 3.
+
+    seqs uint8[B, L], lens int32[B] -> (utile int32[B, u_cap], gmask
+    int64[B, u_cap, r], n_valid int32[B], ok bool[]): the contract of
+    :func:`bigsi_tpu_torch.ops.prep.prep_streams`.  On the card the
+    kernel also counts each query's entries, and ``ok`` is their check
+    against ``u_cap``.
+    """
+    if seqs.dim() != 2:
+        raise ValueError("seqs must be [B, L]")
+    b, l = seqs.shape
+    check_tensor("seqs", seqs, torch.uint8, (b, l), seqs.device)
+    check_tensor("lens", lens, torch.int32, (b,), seqs.device)
+    prep.check_prep_args(k, s, num_tiles, h, tile_rows, r, u_cap)
+    if l < k:
+        raise ValueError("seq_streams needs L >= k, got L=%d k=%d" % (l, k))
+    if device_kind(seqs) == "cpu":
+        return prep.prep_streams(seqs, lens, k=k, s=s, num_tiles=num_tiles, h=h,
+                                 tile_rows=tile_rows, r=r, u_cap=u_cap, seed=seed)
+    dev = seqs.device
+    utile = torch.empty((b, u_cap), dtype=torch.int32, device=dev)
+    gmask = torch.empty((b, u_cap, r), dtype=torch.int64, device=dev)
+    n_valid = torch.empty(b, dtype=torch.int32, device=dev)
+    u_count = torch.empty(b, dtype=torch.int32, device=dev)
+    if b:
+        args = (seqs.data_ptr(), b, l, lens.data_ptr(), k, s, seed & (2**64 - 1), num_tiles, h,
+                tile_rows, r, u_cap)
+        launch(seq_streams, dev, args, (utile, gmask, n_valid, u_count))
+    return utile, gmask, n_valid, (u_count <= u_cap).all()
+
+
+seq_streams.launches = 0

@@ -11,34 +11,49 @@ k-mers each), the shape of bench.py.  Phases:
 3. kernels: kernels A (classic_counts), B (tile_counts), C
    (grouped_tile_counts), D (pack_tile_cols) and E (cols_counts) agree
    bit for bit with their plain PyTorch versions, at the slice's shapes
-   (the full-size matrix, B = 256, K = 512, grouped streams from runs of
+   (the full-size matrix, B = 256, K = 512, grouped streams of runs of
    tiles as the minimizer layout makes them, D and E at tile_rows 16
    and 32) and at ragged ones (W 1 and 33, tile_rows 8 to 64, R 1, 6
    and 20, U not a multiple of 16, empty and all-padding queries, B or
-   K of 0);
+   K of 0); then kernel H (seq_streams) agrees bit for bit with
+   ops/prep.py:prep_streams on utile, gmask, n_valid and ok at the
+   slice's shapes (B = 256 queries padded to 576 bytes, both cols
+   configs, the engine's safe and tight budgets) and at ragged ones
+   (B = 1, lengths 0, below k and k, k = 32 poly-T, k = 15, planted
+   repeats, a query beside its reverse complement, num_tiles 2^20 and
+   1, budgets that overflow, 4,096 bytes at B = 8, h = 10);
 4.-8. five indexes, each an in-memory index of random rows at the bit
    density of scripts/synth_index.py, drawn on the card, with 4 planted
    samples: classic (kernel A), blocked at tile_rows 32 (kernel B),
    minimizer at tile_rows 16 with w = 19, slot scheme 3, r = 20 (the
    JAX package's headline serving config), minimizer at the default
    tile_rows 32, window and slot scheme (w = 11, scheme 3, r = 6) --
-   both cols indexes run kernel D at engine load and kernel E through
-   counts_batch_kmers, which must serve every batch -- and minimizer at
-   tile_rows 64 (kernel C through counts_batch).  Each runs a single
-   search, a bulk_search of a 256-record FASTA through the port's CLI
-   at thresholds 1.0 and 0.7, and 3 GET and 1 POST /search against the
-   port's HTTP server.  Every result dict must equal what the facade
+   both cols indexes run kernel D at engine load, and the seq arm
+   (counts_batch_seqs: kernels H and E) serves their all-ACGT batches
+   -- and minimizer at tile_rows 64 (kernel C through counts_batch).
+   Each runs a single search, a bulk_search of a 256-record FASTA
+   through the port's CLI at thresholds 1.0 and 0.7, and 3 GET, 1 POST
+   and a burst of 8 concurrent GETs (coalesced by the server's batcher)
+   against the port's HTTP server.  The cols indexes also search a batch
+   with one N base (the k-mer path), 8 queries of 4,000 bp (the seq arm)
+   and 248 queries of 542 bp with 8 of 20 kb (split by the facade; the
+   guard refuses the 20 kb half).  Each counts_batch_seqs call is
+   counted as served, overflowed or refused; minimizer/16 must serve
+   every batch the guard admits, and each fall-back goes to
+   counts_batch_kmers.  Every result dict must equal what the facade
    returns on the numpy host engine (``engine: numpy``) on the same
    index.  The launch counts are set to 0 before each index and read
    after it: its kernels must have run, and no other;
 9. times, each beside the GPU's name and power limit: search_batch
    latency and queries/s for 256 queries, split inside each call by the
-   facade's timers into host k-mer prep, the engine's counts_batch (or
-   counts_batch_kmers) and result building; each kernel beside its
-   plain version on the inputs the facade gave the engine (kernel E on
-   the streams of the facade's own counts_batch_kmers calls); kernel D
-   once on the full-size matrix, and kernel C on the minimizer/16
-   streams of kernel E, over the row-major words D packs;
+   facade's timers into the host's part, the engine and result
+   building; on the cols indexes once on the seq path and once on the
+   k-mer path (the seq arm turned off on the engine instance); each
+   kernel beside its plain version on the inputs the facade gave the
+   engine: kernel H on the facade's own bytes, kernel E on H's streams
+   and on the native prep's, kernel C on H's streams over the row-major
+   words; kernel D once on the full-size matrix, and kernel C on the
+   minimizer/16 native prep streams;
 10. probes: the three probe entry points of bigsi_tpu_torch.scripts
    (probe_multidma, bisect, microbench) run in-process over the
    blocked/32 index's resident words (tile_rows 32: 4 KB tiles; S2 views
@@ -73,6 +88,8 @@ import threading
 import time
 import urllib.parse
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -109,8 +126,9 @@ KERNELS = (
     ("gather_rows", "scripts/probe_multidma.py:62"),
     ("tile_xor", "scripts/microbench.py:233, scripts/bisect_kernel.py:49, "
      "scripts/bisect_compile.py:107, scripts/bisect_size.py:73"),
+    ("seq_streams", "bigsi_tpu/ops/prep_jax.py:260"),
 )
-COLS_KERNELS = ("pack_tile_cols", "cols_counts")
+COLS_KERNELS = ("pack_tile_cols", "cols_counts", "seq_streams")
 # the indexes of phases 4-8: name -> (config entries, kernels of its path)
 INDEXES = {
     "classic": ({"layout": "classic"}, ("classic_counts",)),
@@ -123,8 +141,9 @@ INDEXES = {
 HEADLINE = "minimizer/16"
 PROBE_INDEX = "blocked/32"  # whose resident words the probes of phase 10 read
 PROBE_KERNELS = ("gather_rows", "tile_xor", "tile_counts", "grouped_tile_counts")
-# the indexes whose batches counts_batch_kmers must serve, with their r
-KMER_PATHS = {HEADLINE: HEADLINE_R, "minimizer/32": DEFAULT_R}
+# the cols indexes, with their r: the seq arm (kernels H and E) serves
+# their unscored all-ACGT batches, counts_batch_kmers the rest
+COLS_INDEXES = {HEADLINE: HEADLINE_R, "minimizer/32": DEFAULT_R}
 
 
 def check(ok: bool, what: str) -> None:
@@ -188,7 +207,9 @@ class Errors:
                   "%s %s: shape/dtype %s %s vs %s %s"
                   % (name, case, g.shape, g.dtype, w.shape, w.dtype))
             err = 0
-            if not torch.equal(g, w):  # in row chunks: a full-size int64 copy is 12.8 GB
+            if g.dim() == 0:  # a flag, such as kernel H's ok
+                err = int(not torch.equal(g, w))
+            elif not torch.equal(g, w):  # in row chunks: a full-size int64 copy is 12.8 GB
                 step = max(1, (1 << 26) // max(1, g[0].numel()))
                 err = max(int((g[i:i + step].long() - w[i:i + step].long()).abs().max())
                           for i in range(0, g.shape[0], step))
@@ -318,6 +339,94 @@ def phase_kernels(gen, errors: Errors) -> None:
           % (cases, W, M, B, H, HEADLINE_RUN, HEADLINE_R, DEFAULT_RUN, DEFAULT_R), flush=True)
 
 
+def acgt(rng, shape) -> np.ndarray:
+    return np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, size=shape)]
+
+
+def revcomp(row: np.ndarray) -> np.ndarray:
+    return np.frombuffer(bytes(row[::-1]).translate(bytes.maketrans(b"ACGT", b"TGCA")),
+                         dtype=np.uint8)
+
+
+def seq_cases(rng):
+    """Kernel H's cases: (name, seqs uint8[B, L], lens int32[B], prep
+    arguments).  The slice's shapes (B queries of QUERY_LEN bytes padded
+    to 576, both cols configs, the engine's safe and tight budgets) and
+    ragged ones; padding bytes are random bytes."""
+    from bigsi_tpu_torch.index.device_engine import DeviceEngine
+
+    def kw(k=K_LEN, window=19, tile_rows=16, r=HEADLINE_R, num_tiles=M // 16, u_cap=None, h=H):
+        nk = 576 - k + 1
+        return dict(k=k, s=k - window + 1, num_tiles=num_tiles, h=h, tile_rows=tile_rows, r=r,
+                    u_cap=DeviceEngine._seq_u_cap(nk, window) if u_cap is None else u_cap)
+
+    def batch(b, l, lens, fill=None):
+        seqs = acgt(rng, (b, l)) if fill is None else np.full((b, l), ord(fill), np.uint8)
+        lens = np.broadcast_to(np.asarray(lens, dtype=np.int32), (b,)).copy()
+        for q in range(b):  # bytes past lens are arbitrary padding
+            seqs[q, max(0, lens[q]):] = rng.integers(0, 256, size=l - max(0, lens[q]))
+        return seqs, lens
+
+    cases = []
+    for tile_rows, window, r in ((16, 19, HEADLINE_R), (32, 11, DEFAULT_R)):
+        arg = kw(window=window, tile_rows=tile_rows, r=r, num_tiles=M // tile_rows)
+        seqs, lens = batch(B, 576, QUERY_LEN)
+        seqs[:, QUERY_LEN:] = ord("A")  # as seq_batch_geometry pads
+        tight = DeviceEngine._seq_u_tight(576 - K_LEN + 1, window)
+        for u_cap in (arg["u_cap"], tight):
+            cases.append(("slice B=%d L=576 tile_rows=%d w=%d U=%d" % (B, tile_rows, window, u_cap),
+                          seqs, lens, dict(arg, u_cap=u_cap)))
+    cases.append(("B=1", *batch(1, 576, 560), kw()))
+    cases.append(("lens 0, 20, 31, 32 and 576", *batch(5, 576, [0, 20, 31, 32, 576]), kw()))
+    poly_t = batch(4, 128, [128, 100, 32, 31], fill="T")
+    poly_t[0][1, :20] = ord("A")
+    cases.append(("k=32 poly-T", *poly_t, kw(k=32, window=11, u_cap=40)))
+    cases.append(("k=15", *batch(6, 256, [256, 255, 100, 15, 14, 0]), kw(k=15, window=11,
+                                                                           u_cap=64)))
+    seqs, lens = batch(2, 3264, [3264, 3200])
+    seqs[0, 200:320] = seqs[0, 10:130]  # a repeat 190 bytes after its first occurrence
+    seqs[0, 3000:3120] = seqs[0, 10:130]  # and one about 3 kb after
+    cases.append(("planted repeats", seqs, lens, kw(u_cap=400)))
+    seqs, lens = batch(3, 576, [400, 576, 350])
+    seqs[0, 200:400] = revcomp(seqs[0, :200])  # a query next to its reverse complement
+    cases.append(("reverse complement", seqs, lens, kw()))
+    cases.append(("num_tiles 2^20", *batch(16, 576, 542), kw(num_tiles=1 << 20)))
+    cases.append(("num_tiles 1", *batch(3, 100, 100), kw(num_tiles=1, u_cap=8)))
+    cases.append(("overflow U=3", *batch(16, 576, 542), kw(u_cap=3)))
+    cases.append(("overflow U=0", *batch(4, 576, [542, 0, 20, 300]), kw(u_cap=0)))
+    cases.append(("lb=4096 B=8", *batch(8, 4096, [4096, 4095, 4000, 3000, 2048, 31, 0, 4096]),
+                  kw(u_cap=DeviceEngine._seq_u_cap(4096 - K_LEN + 1, 19))))
+    cases.append(("h=10 tile_rows 32 r=1", *batch(8, 192, 192), kw(h=10, tile_rows=32, r=1,
+                                                                     u_cap=162)))
+    return cases
+
+
+def seq_checks(rng, errors: Errors) -> None:
+    """Kernel H bit for bit against prep_streams on every case of
+    seq_cases: utile, gmask, n_valid and ok."""
+    import torch
+
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import prep
+
+    dev = torch.device(DEVICE)
+    oks = []
+    for case, seqs, lens, kw in seq_cases(rng):
+        args = (torch.from_numpy(seqs).to(dev), torch.from_numpy(lens).to(dev))
+        got, want = fl.seq_streams(*args, **kw), prep.prep_streams(*args, **kw)
+        errors.compare("seq_streams", got[:3], want[:3], case)
+        check(bool(got[3]) == bool(want[3]), "seq_streams %s: ok %s, plain %s"
+              % (case, bool(got[3]), bool(want[3])))
+        oks.append(bool(want[3]))
+    torch.cuda.synchronize()
+    check(not all(oks) and any(oks), "the cases include overflow and none")
+    print("phase 3 kernels: seq_streams (kernel H) bit-exact with prep_streams on utile, "
+          "gmask, n_valid and ok in %d cases (%d overflow): slice B=%d L=576 at both cols "
+          "configs and budgets; B=1, lens 0 / below k / k, k=32 poly-T, k=15, planted repeats "
+          "190 B and 3 kb apart, a query beside its reverse complement, num_tiles 2^20 and 1, "
+          "U of 3 and 0, lb=4096 B=8, h=10" % (len(oks), oks.count(False), B), flush=True)
+
+
 # -- phases 4-8 ---------------------------------------------------------
 
 
@@ -373,9 +482,10 @@ def http_json(url: str, body: dict | None = None):
 
 
 class EngineCalls:
-    """Records the arguments of every call of the named methods on every
-    DeviceEngine (the CLI and the server make their own):
-    ``with EngineCalls(name, ...) as calls`` gives {name: [args, ...]}."""
+    """Records the arguments and result of every call of the named
+    methods on every DeviceEngine (the CLI and the server make their
+    own): ``with EngineCalls(name, ...) as calls`` gives {name: [(args,
+    result), ...]}."""
 
     def __init__(self, *names):
         from bigsi_tpu_torch.index.device_engine import DeviceEngine
@@ -387,8 +497,9 @@ class EngineCalls:
     def __enter__(self):
         for name, real in self.real.items():
             def wrapper(engine, *args, _seen=self.calls[name], _real=real):
-                _seen.append(args)
-                return _real(engine, *args)
+                out = _real(engine, *args)
+                _seen.append((args, out))
+                return out
 
             setattr(self.cls, name, wrapper)
         return self.calls
@@ -396,6 +507,52 @@ class EngineCalls:
     def __exit__(self, *exc):
         for name, real in self.real.items():
             setattr(self.cls, name, real)
+
+
+def seq_outcomes(calls) -> dict:
+    """counts_batch_seqs calls -> how many served, overflowed (None from
+    a batch the geometry guard admits) and were refused by the guard
+    (None from a batch past SEQ_MAX_NK k-mers)."""
+    from bigsi_tpu_torch.index.device_engine import SEQ_MAX_NK
+
+    out = {"served": 0, "overflowed": 0, "refused": 0}
+    for args, result in calls:
+        if result is not None:
+            out["served"] += 1
+        elif args[0].shape[1] - K_LEN + 1 > SEQ_MAX_NK:
+            out["refused"] += 1
+        else:
+            out["overflowed"] += 1
+    return out
+
+
+def check_seq_batch(name, what, outcome, kmer_calls) -> None:
+    """What each of the cols indexes' extra batches must take: the N
+    batch the k-mer path alone; the 4 kb batch the seq arm; the mixed
+    batch the seq arm for its short part and a refusal of its 20 kb
+    part.  On minimizer/32 an overflow may send a batch the seq arm
+    admits to the k-mer path: the JAX engine's budgets (kept as they
+    are) fall short of the entries 4 kb queries need at w = 11, r = 6."""
+    served, fell = outcome["served"], outcome["overflowed"]
+    if what.startswith("one N"):
+        ok = served + fell + outcome["refused"] == 0 and kmer_calls == 1
+    else:
+        refused = 1 if what.endswith("20 kb") else 0
+        ok = (outcome["refused"] == refused and served + fell == 1
+              and kmer_calls == refused + fell and (served == 1 or name != HEADLINE))
+    check(ok, "%s: search_batch of %s took the wrong path: %s, %d counts_batch_kmers calls"
+          % (name, what, outcome, kmer_calls))
+
+
+def seq_traffic(rng, planted, seqs):
+    """The cols indexes' extra batches: (name, queries)."""
+    with_n = list(seqs)
+    with_n[7] = with_n[7][:100] + "N" + with_n[7][101:]
+    long4k = [mutate(rng, planted[i % PLANTED] + planted[(i + 1) % PLANTED], 8 * (i % 3))
+              for i in range(8)]
+    mixed = seqs[:B - 8] + [planted[i % PLANTED] + random_seq(rng, 18_000) for i in range(8)]
+    return (("one N base", with_n), ("8 x 4,000 bp", long4k),
+            ("%d x %d bp + 8 x 20 kb" % (B - 8, QUERY_LEN), mixed))
 
 
 def phase_slice(number: int, name: str, gen, rng):
@@ -413,13 +570,16 @@ def phase_slice(number: int, name: str, gen, rng):
     check(type(host.engine).__name__ == "HostEngine", "the reference runs the host engine")
     port = BIGSI(config, device=DEVICE)
     check(type(port.engine).__name__ == "DeviceEngine", "the port runs its CUDA engine")
-    kmer = name in KMER_PATHS
-    if kmer:
-        engine = port.engine
-        check(engine.run_len == KMER_PATHS[name] and engine.slot_scheme == 3
+    cols = name in COLS_INDEXES
+    engine = port.engine
+    if cols:
+        check(engine.run_len == COLS_INDEXES[name] and engine.slot_scheme == 3
               and engine.cols is not None and engine.words is None,
-              "%s: cols engine with slot scheme 3 and r = %d" % (name, KMER_PATHS[name]))
-        check(engine.supports_kmer_batch(), "%s: counts_batch_kmers serves" % name)
+              "%s: cols engine with slot scheme 3 and r = %d" % (name, COLS_INDEXES[name]))
+        check(engine.supports_seq_batch() and engine.supports_kmer_batch(),
+              "%s: counts_batch_seqs and counts_batch_kmers serve" % name)
+    else:
+        check(not engine.supports_seq_batch(), "%s: the seq arm is off" % name)
     compared = 0
 
     # single search of a planted query
@@ -438,7 +598,8 @@ def phase_slice(number: int, name: str, gen, rng):
     cfg_path = WORK / ("%s.yaml" % name.replace("/", "-"))
     cfg_path.write_text(yaml.safe_dump(config))
     n_hits = {}
-    with EngineCalls("counts_batch", "counts_batch_kmers") as calls:
+    methods = ("counts_batch", "counts_batch_kmers", "counts_batch_seqs")
+    with EngineCalls(*methods) as calls:
         for t in (1.0, 0.7):
             args = make_parser().parse_args(
                 ["bulk_search", str(fasta), "-t", str(t), "-c", str(cfg_path)])
@@ -447,39 +608,84 @@ def phase_slice(number: int, name: str, gen, rng):
             check(got == want, "%s bulk_search at %.1f equals the host's" % (name, t))
             n_hits[t] = sum(len(d["results"]) for d in got)
             compared += len(got)
+
+        # HTTP /search: 3 GET and 1 POST, then a burst of 8 concurrent GETs
+        # that the server's batcher coalesces
+        server = make_server(dict(config, serve_batch_wait_ms=30), host="127.0.0.1", port=0,
+                             device=DEVICE)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = "http://127.0.0.1:%d/search" % server.server_address[1]
+
+            def get(s, t):
+                return http_json(base + "?" + urllib.parse.urlencode({"seq": s, "threshold": t}))
+
+            for s, t in ((seqs[0], 1.0), (seqs[1], 0.7), (seqs[3], 0.7)):
+                check(get(s, t) == result_dict(s, t, host.search(s, t)),
+                      "%s GET /search equals the host's" % name)
+            got = http_json(base, {"seq": seqs[5], "threshold": 0.7})
+            check(got == result_dict(seqs[5], 0.7, host.search(seqs[5], 0.7)),
+                  "%s POST /search equals the host's" % name)
+            burst = seqs[8:16]
+            before = {method: len(c) for method, c in calls.items()}
+            with ThreadPoolExecutor(max_workers=len(burst)) as pool:
+                outs = list(pool.map(lambda s: get(s, 0.7), burst))
+            for s, got in zip(burst, outs):
+                check(got == result_dict(s, 0.7, host.search(s, 0.7)),
+                      "%s coalesced GET /search equals the host's" % name)
+            compared += 4 + len(burst)
+        finally:
+            server.shutdown()
+            server.invalidate()
+            server.server_close()
+            thread.join(timeout=60)
+        check(not thread.is_alive(), "the HTTP server stopped")
+        # queries of the burst that reached the engine in a search_batch
+        coalesced = sum(len(args[0]) for method in ("counts_batch", "counts_batch_seqs")
+                        for args, _ in calls[method][before[method]:])
+        extra = []
+        if cols:  # a non-ACGT batch, long queries and a mixed-length batch
+            for what, batch in seq_traffic(rng, planted, seqs):
+                before = {method: len(c) for method, c in calls.items()}
+                got = port.search_batch(batch, 0.7)
+                check(got == host.search_batch(batch, 0.7),
+                      "%s search_batch of %s equals the host's" % (name, what))
+                check_seq_batch(name, what, seq_outcomes(
+                    calls["counts_batch_seqs"][before["counts_batch_seqs"]:]),
+                    len(calls["counts_batch_kmers"]) - before["counts_batch_kmers"])
+                compared += len(batch)
+                extra.append(what)
     check(n_hits[1.0] > 0 and n_hits[0.7] > n_hits[1.0],
           "bulk_search finds exact and inexact hits: %s" % n_hits)
-    served = {method: len(args) for method, args in calls.items()}
-    used, unused = ("counts_batch_kmers", "counts_batch")[::1 if kmer else -1]
-    check(served[used] > 0 and served[unused] == 0,
-          "%s: %s served every batch: %s" % (name, used, served))
-
-    # HTTP /search: 3 GET and 1 POST
-    server = make_server(config, host="127.0.0.1", port=0, device=DEVICE)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    try:
-        base = "http://127.0.0.1:%d/search" % server.server_address[1]
-        gets = ((seqs[0], 1.0), (seqs[1], 0.7), (seqs[3], 0.7))
-        for s, t in gets:
-            got = http_json(base + "?" + urllib.parse.urlencode({"seq": s, "threshold": t}))
-            check(got == result_dict(s, t, host.search(s, t)),
-                  "%s GET /search equals the host's" % name)
-        got = http_json(base, {"seq": seqs[5], "threshold": 0.7})
-        check(got == result_dict(seqs[5], 0.7, host.search(seqs[5], 0.7)),
-              "%s POST /search equals the host's" % name)
-        compared += 4
-    finally:
-        server.shutdown()
-        server.invalidate()
-        server.server_close()
-        thread.join(timeout=60)
-    check(not thread.is_alive(), "the HTTP server stopped")
+    check(coalesced > 0, "%s: the HTTP batcher coalesced GETs into search_batch" % name)
+    n = {method: len(c) for method, c in calls.items()}
+    if cols:
+        outcome = seq_outcomes(calls["counts_batch_seqs"])
+        falls = outcome["overflowed"] + outcome["refused"]
+        # the N batch and every None take the k-mer path, never counts_batch
+        check(n["counts_batch"] == 0 and n["counts_batch_kmers"] == falls + 1,
+              "%s: the k-mer path answered the N batch and each fall-back: %s %s"
+              % (name, n, outcome))
+        check(outcome["refused"] == 1, "%s: the guard refused the 20 kb half alone: %s"
+              % (name, outcome))
+        check(name != HEADLINE or outcome["overflowed"] == 0,
+              "%s: the seq arm served every batch it admits: %s" % (name, outcome))
+        shapes = [tuple(args[0].shape) for args, out in calls["counts_batch_seqs"]
+                  if out is None]
+        route = ("counts_batch_seqs (served %(served)d, overflowed %(overflowed)d, "
+                 "refused by the guard %(refused)d" % outcome
+                 + "; (B, L) of the batches it returned None for: %s)" % shapes)
+    else:
+        check(n["counts_batch"] > 0 and n["counts_batch_kmers"] == n["counts_batch_seqs"] == 0,
+              "%s: counts_batch served every batch: %s" % (name, n))
+        route = "counts_batch"
     print("phase %d %s: index of %d samples, m=%d, made in %.1f s; %d result "
           "lists equal the host engine's (search, bulk_search at 1.0 and 0.7 with "
-          "%d and %d hits through %s, HTTP 3 GET + 1 POST)"
-          % (number, name, N, M, t_index, compared, n_hits[1.0], n_hits[0.7],
-             "counts_batch_kmers" if kmer else "counts_batch"),
+          "%d and %d hits, HTTP 3 GET + 1 POST + 8 concurrent GETs (%d coalesced)%s) "
+          "through %s; engine calls %s"
+          % (number, name, N, M, t_index, compared, n_hits[1.0], n_hits[0.7], coalesced,
+             "".join(", search_batch of " + e for e in extra), route, json.dumps(n)),
           flush=True)
     return port, seqs
 
@@ -490,9 +696,10 @@ def phase_slice(number: int, name: str, gen, rng):
 def search_batch_layers(port, seqs, reps: int) -> list[dict]:
     """Times of `reps` search_batch calls of the whole batch, each split
     by the facade's own timers inside that call: the engine's
-    counts_batch or counts_batch_kmers ("search.batch_counts"), result
-    building ("search.batch_results"), and the rest, which is k-mer
-    extraction, hashing and padding on the host; inside
+    counts_batch, counts_batch_kmers or counts_batch_seqs
+    ("search.batch_counts"), result building ("search.batch_results"),
+    and the rest: on the seq path the bytes' padding and the ACGT gate,
+    else k-mer extraction, hashing and padding on the host.  Inside
     counts_batch_kmers, the engine's own spans split the native prep
     ("engine.kmer_prep") from copies, kernel and counts back
     ("engine.kmer_counts").  All in ms."""
@@ -517,6 +724,10 @@ def search_batch_layers(port, seqs, reps: int) -> list[dict]:
     return calls
 
 
+def median_call(calls) -> dict:
+    return sorted(calls, key=lambda c: c["search_batch"])[len(calls) // 2]
+
+
 def engine_inputs(port, seqs, method: str):
     """The arguments the facade hands the engine's ``method`` in one
     search_batch of `seqs`."""
@@ -524,7 +735,28 @@ def engine_inputs(port, seqs, method: str):
         port.search_batch(seqs, 1.0)
     seen = calls[method]
     check(len(seen) == 1, "one %s per search_batch, got %d" % (method, len(seen)))
-    return seen[0]
+    return seen[0][0]
+
+
+def seq_inputs(port, seqs):
+    """The padded bytes, lengths and prep arguments of kernel H's last
+    launch in one search_batch of `seqs`, and whether its ``ok`` held."""
+    from bigsi_tpu_torch.index import device_engine
+
+    seen, real = [], device_engine._counts_batch_seqs
+
+    def spy(cols, seqs_d, lens_d, **kw):
+        out = real(cols, seqs_d, lens_d, **kw)
+        seen.append((seqs_d, lens_d, kw, bool(out[2])))
+        return out
+
+    device_engine._counts_batch_seqs = spy
+    try:
+        port.search_batch(seqs, 1.0)
+    finally:
+        device_engine._counts_batch_seqs = real
+    check(len(seen) > 0, "search_batch launched kernel H")
+    return seen[-1]
 
 
 def timed_kernel(name, kernel, reference, args, errors, case):
@@ -534,72 +766,112 @@ def timed_kernel(name, kernel, reference, args, errors, case):
     return cuda_ms(lambda: kernel(*args), 20, DEVICE), cuda_ms(lambda: reference(*args), 5, DEVICE)
 
 
-def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
-    """-> {kernel: (ms, plain ms)}, each kernel on the first index of its
-    path (kernel E on minimizer/16)."""
+def host_kernel_inputs(port, seqs):
+    """The layout's kernel, plain version and arguments on the inputs the
+    facade hands counts_batch in one search_batch of `seqs`."""
     import torch
 
-    from bigsi_tpu_torch.index.device_engine import kmer_streams_to_device, load_words, tile_streams
+    from bigsi_tpu_torch.index.device_engine import tile_streams
     from bigsi_tpu_torch.ops import fused_lookup as fl
     from bigsi_tpu_torch.ops import lookup as plain
+
+    engine = port.engine
+    idx, mask = engine_inputs(port, seqs, "counts_batch")[:2]
+    idx_t = torch.from_numpy(idx.astype(np.int32)).to(engine.device)
+    mask_t = torch.from_numpy(mask).to(engine.device)
+    shape = "B=%d K=%d h=%d" % idx.shape
+    if engine.layout == "classic":
+        return "classic_counts", fl.classic_counts, plain.batched_counts, (
+            engine.words, idx_t, mask_t), shape
+    tile, smask = tile_streams(idx_t, mask_t, engine.tile_rows)
+    if engine.layout == "blocked":
+        return "tile_counts", fl.tile_counts, plain.blocked_counts, (
+            engine.words, tile, smask, engine.tile_rows), shape
+    utile, gmask = plain.build_grouped_streams(tile, smask, engine.run_len)
+    return "grouped_tile_counts", fl.grouped_tile_counts, plain.grouped_counts, (
+        engine.words, utile, gmask, engine.tile_rows), shape + " U=%d R=%d" % gmask.shape[1:]
+
+
+def phase_cols_times(number: int, gpu: str, name: str, port, seqs, errors: Errors,
+                     kernel_ms: dict) -> None:
+    """A cols index: search_batch on the seq path and, with the seq arm
+    turned off on the engine instance, on the k-mer path, each split by
+    layer; kernel H beside its plain version on the facade's own bytes,
+    kernel E on H's streams and on the native prep's, kernel C on H's
+    streams over the row-major words (and, on minimizer/16, kernel D
+    once at full size and C on the native prep's streams)."""
+    import torch
+
+    from bigsi_tpu_torch.index.device_engine import kmer_streams_to_device, load_words
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import lookup as plain
+    from bigsi_tpu_torch.ops import prep as plain_prep
     from bigsi_tpu_torch.scripts.timing import cuda_ms
 
-    kernel_ms, kmer_streams = {}, {}
-    for name, (port, seqs) in runs.items():
-        engine = port.engine
-        dev = engine.device
-        calls = search_batch_layers(port, seqs, 5)
-        mid = sorted(calls, key=lambda c: c["search_batch"])[len(calls) // 2]
-        kmer = name in KMER_PATHS
-        if kmer:
-            kname = "cols_counts"
-            prep, _ = engine_inputs(port, seqs, "_dispatch_kmer_chunk")
-            kmer_streams[name] = kmer_streams_to_device(prep, dev)
-            args = (engine.cols, *kmer_streams[name])
-            kernel, reference = fl.cols_counts, plain.grouped_counts_cols
-            shape = "B=%d U=%d R=%d" % tuple(args[2].shape)
-        else:
-            idx, mask = engine_inputs(port, seqs, "counts_batch")[:2]
-            idx_t = torch.from_numpy(idx.astype(np.int32)).to(dev)
-            mask_t = torch.from_numpy(mask).to(dev)
-            shape = "B=%d K=%d h=%d" % idx.shape
-            if engine.layout == "classic":
-                kname, kernel, reference = "classic_counts", fl.classic_counts, plain.batched_counts
-                args = (engine.words, idx_t, mask_t)
-            else:
-                tile, smask = tile_streams(idx_t, mask_t, engine.tile_rows)
-                if engine.layout == "blocked":
-                    kname, kernel, reference = "tile_counts", fl.tile_counts, plain.blocked_counts
-                    args = (engine.words, tile, smask, engine.tile_rows)
-                else:
-                    kname = "grouped_tile_counts"
-                    kernel, reference = fl.grouped_tile_counts, plain.grouped_counts
-                    utile, gmask = plain.build_grouped_streams(tile, smask, engine.run_len)
-                    args = (engine.words, utile, gmask, engine.tile_rows)
-                    shape += " U=%d R=%d" % gmask.shape[1:]
-        k_ms, p_ms = timed_kernel(kname, kernel, reference, args, errors, "%s batch" % name)
-        kernel_ms.setdefault(kname, (k_ms, p_ms))
-        inside = ""
-        if kmer:
-            inside = " (native prep %.3f ms, copies + kernel + counts back %.3f ms)" % (
-                mid["engine.kmer_prep"], mid["engine.kmer_counts"])
-        print("phase %d times %s [%s]: search_batch of %d queries, median of %d calls "
-              "%.3f ms (%.1f queries/s); inside that call: k-mer extraction and padding "
-              "on the host %.3f ms, engine %s %.3f ms%s, result building %.3f ms; %s "
-              "kernel %.4f ms vs plain PyTorch %.4f ms (%s, cold L2); kernel share of "
-              "search_batch %.4f"
-              % (number, name, gpu, B, len(calls), mid["search_batch"],
-                 B / mid["search_batch"] * 1e3, mid["prep"],
-                 "counts_batch_kmers" if kmer else "counts_batch", mid["counts"], inside,
-                 mid["results"], kname, k_ms, p_ms, shape, k_ms / mid["search_batch"]),
+    engine = port.engine
+    seq_calls = search_batch_layers(port, seqs, 5)
+    seqs_d, lens_d, kw, ok = seq_inputs(port, seqs)
+    check(ok or name != HEADLINE, "%s: kernel H's streams fit the budget" % name)
+    engine.supports_seq_batch = lambda: False  # the k-mer path, on this instance only
+    try:
+        kmer_calls = search_batch_layers(port, seqs, 5)
+        native = kmer_streams_to_device(engine_inputs(port, seqs, "_dispatch_kmer_chunk")[0],
+                                        engine.device)
+    finally:
+        del engine.supports_seq_batch
+    seq, kmer = median_call(seq_calls), median_call(kmer_calls)
+    print("phase %d times %s [%s]: search_batch of %d queries, median of %d calls; seq path "
+          "%.3f ms (%.1f queries/s): padding and ACGT gate on the host %.3f ms, engine "
+          "counts_batch_seqs %.3f ms (kernels H and E, the ok read, counts back), result "
+          "building %.3f ms; k-mer path (seq arm off) %.3f ms (%.1f queries/s): k-mer "
+          "extraction on the host %.3f ms, engine counts_batch_kmers %.3f ms (native prep "
+          "%.3f ms, copies + kernel + counts back %.3f ms), result building %.3f ms; seq "
+          "path / k-mer path %.4f"
+          % (number, name, gpu, B, len(seq_calls), seq["search_batch"],
+             B / seq["search_batch"] * 1e3, seq["prep"], seq["counts"], seq["results"],
+             kmer["search_batch"], B / kmer["search_batch"] * 1e3, kmer["prep"], kmer["counts"],
+             kmer["engine.kmer_prep"], kmer["engine.kmer_counts"], kmer["results"],
+             seq["search_batch"] / kmer["search_batch"]), flush=True)
+    for path, calls in (("seq", seq_calls), ("k-mer", kmer_calls)):
+        print("phase %d calls %s %s path [%s]: %s" % (number, name, path, gpu, json.dumps(calls)),
               flush=True)
-        print("phase %d calls %s [%s]: %s" % (number, name, gpu, json.dumps(calls)), flush=True)
 
-    # kernel D once on the full-size matrix of the minimizer/16 index,
-    # held to the cols its engine built at load and to the plain version
-    engine = runs[HEADLINE][0].engine
+    # kernel H on the facade's bytes; E on H's streams and on the native prep's
+    h_ms = timed_kernel("seq_streams", partial(fl.seq_streams, **kw),
+                        partial(plain_prep.prep_streams, **kw), (seqs_d, lens_d), errors,
+                        "%s facade bytes" % name)
+    h_streams = fl.seq_streams(seqs_d, lens_d, **kw)[:3]
+    e_ms = timed_kernel("cols_counts", fl.cols_counts, plain.grouped_counts_cols,
+                        (engine.cols, *h_streams), errors, "%s H streams" % name)
+    e_native = timed_kernel("cols_counts", fl.cols_counts, plain.grouped_counts_cols,
+                            (engine.cols, *native), errors, "%s native streams" % name)
+    kernel_ms.setdefault("seq_streams", h_ms)
+    kernel_ms.setdefault("cols_counts", e_ms)
+
+    # kernel C on H's streams over the row-major words: the same counts
     tile_rows = engine.tile_rows
     words = load_words(np.asarray(engine.matrix.words), engine.device, tile_rows)
+    c_args = (words, h_streams[0], h_streams[1], tile_rows)
+    c_ms = timed_kernel("grouped_tile_counts", fl.grouped_tile_counts, plain.grouped_counts,
+                        c_args, errors, "%s H streams" % name)
+    check(all(torch.equal(c, e) for c, e in zip(fl.grouped_tile_counts(*c_args),
+                                                  fl.cols_counts(engine.cols, *h_streams))),
+          "%s: kernels C and E agree on H's streams" % name)
+    b, u, r = h_streams[1].shape
+    print("phase %d kernels %s [%s]: H seq_streams %.4f ms vs plain PyTorch %.4f ms (B=%d "
+          "L=%d U=%d R=%d, ok %s); E on H's streams %.4f ms (plain %.4f) vs on the native "
+          "prep's streams %.4f ms (plain %.4f, U=%d); C on H's streams over the row-major "
+          "words %.4f ms (plain %.4f), equal to E; H + E share of the seq-path search_batch "
+          "%.4f; escalation state %s (cold L2)"
+          % (number, name, gpu, h_ms[0], h_ms[1], b, seqs_d.shape[1], u, r, ok, e_ms[0],
+             e_ms[1], e_native[0], e_native[1], native[1].shape[1], c_ms[0], c_ms[1],
+             (h_ms[0] + e_ms[0]) / seq["search_batch"], json.dumps(engine._seq_cap_esc)),
+          flush=True)
+    if name != HEADLINE:
+        return
+
+    # kernel D once on the full-size matrix, held to the cols the engine
+    # built at load and to the plain version; C and E on the native streams
     cols = fl.pack_tile_cols(words, tile_rows)
     check(torch.equal(cols, engine.cols), "kernel D repeats the engine's cols")
     del cols
@@ -613,22 +885,44 @@ def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
           "PyTorch %.4f ms (%.1f GB/s read + write)"
           % (number, gpu, M, W, tile_rows, d_ms, d_plain,
              2 * words.numel() * 4 / d_ms / 1e6), flush=True)
-
-    # kernel C on kernel E's minimizer/16 streams, over the row-major
-    # words: the same counts, from the layout without cols
-    utile, gmask, n_valid = kmer_streams[HEADLINE]
-    c_args = (words, utile, gmask, tile_rows)
-    c_ms, c_plain = timed_kernel("grouped_tile_counts", fl.grouped_tile_counts,
-                                 plain.grouped_counts, c_args, errors, "minimizer/16 streams")
-    e_out = fl.cols_counts(engine.cols, utile, gmask, n_valid)
-    check(all(torch.equal(c, e) for c, e in zip(fl.grouped_tile_counts(*c_args), e_out)),
-          "kernels C and E agree on the minimizer/16 streams")
-    print("phase %d times C vs E [%s]: minimizer/16 streams of the facade (B=%d U=%d R=%d), "
+    c_args = (words, native[0], native[1], tile_rows)
+    c_native = timed_kernel("grouped_tile_counts", fl.grouped_tile_counts,
+                            plain.grouped_counts, c_args, errors, "%s native streams" % name)
+    check(all(torch.equal(c, e) for c, e in zip(fl.grouped_tile_counts(*c_args),
+                                                  fl.cols_counts(engine.cols, *native))),
+          "kernels C and E agree on the native streams")
+    print("phase %d times C vs E [%s]: %s native prep streams of the facade (B=%d U=%d R=%d), "
           "kernel C over the row-major words %.4f ms (plain %.4f ms) vs kernel E over the "
           "cols %.4f ms (cold L2); equal counts and exact"
-          % ((number, gpu) + tuple(gmask.shape) + (c_ms, c_plain, kernel_ms["cols_counts"][0])),
-          flush=True)
-    del words, args, c_args
+          % ((number, gpu, name) + tuple(native[1].shape) + (c_native[0], c_native[1],
+                                                             e_native[0])), flush=True)
+
+
+def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
+    """-> {kernel: (ms, plain ms)}, each kernel on the first index of its
+    path (kernels H and E on minimizer/16's seq path)."""
+    import torch
+
+    kernel_ms = {}
+    for name, (port, seqs) in runs.items():
+        if name in COLS_INDEXES:
+            phase_cols_times(number, gpu, name, port, seqs, errors, kernel_ms)
+            continue
+        calls = search_batch_layers(port, seqs, 5)
+        mid = median_call(calls)
+        kname, kernel, reference, args, shape = host_kernel_inputs(port, seqs)
+        k_ms, p_ms = timed_kernel(kname, kernel, reference, args, errors, "%s batch" % name)
+        kernel_ms.setdefault(kname, (k_ms, p_ms))
+        print("phase %d times %s [%s]: search_batch of %d queries, median of %d calls "
+              "%.3f ms (%.1f queries/s); inside that call: k-mer extraction and padding "
+              "on the host %.3f ms, engine counts_batch %.3f ms, result building %.3f ms; %s "
+              "kernel %.4f ms vs plain PyTorch %.4f ms (%s, cold L2); kernel share of "
+              "search_batch %.4f"
+              % (number, name, gpu, B, len(calls), mid["search_batch"],
+                 B / mid["search_batch"] * 1e3, mid["prep"], mid["counts"], mid["results"],
+                 kname, k_ms, p_ms, shape, k_ms / mid["search_batch"]),
+              flush=True)
+        print("phase %d calls %s [%s]: %s" % (number, name, gpu, json.dumps(calls)), flush=True)
     print("phase %d memory [%s]: peak %.2f GB allocated on the device"
           % (number, gpu, torch.cuda.max_memory_allocated() / 1e9), flush=True)
     return kernel_ms
@@ -784,6 +1078,7 @@ def main() -> None:
     rng = np.random.default_rng(seed)
     errors = Errors()
     phase_kernels(gen, errors)
+    seq_checks(rng, errors)
 
     # the main path, one index at a time: only its launches are counted
     runs, launches = {}, dict.fromkeys(fns, 0)

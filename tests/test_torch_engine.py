@@ -195,7 +195,8 @@ def test_headline_cols_engine_matches_jax_package(monkeypatch, reference):
     engine = port.engine
     assert engine.run_len == 20 and engine.slot_scheme == 3
     assert engine.cols is not None and engine.cols.dtype == torch.int16 and engine.words is None
-    assert engine.supports_kmer_batch() and not engine.supports_seq_batch()
+    assert engine.supports_kmer_batch() and engine.supports_seq_batch()
+    seq_calls = spy(monkeypatch, DeviceEngine, "counts_batch_seqs")
     kmer_calls = spy(monkeypatch, DeviceEngine, "counts_batch_kmers")
     batch_calls = spy(monkeypatch, DeviceEngine, "counts_batch")
     ref = bigsi_tpu.BIGSI(dict(config, engine=reference))
@@ -209,24 +210,32 @@ def test_headline_cols_engine_matches_jax_package(monkeypatch, reference):
         assert port.search(q, 0.7, score=True) == ref.search(q, 0.7, score=True)
     assert port.search_batch(queries[:3], 0.7, score=True) == ref.search_batch(
         queries[:3], 0.7, score=True)
-    assert len(kmer_calls) == 3 and not batch_calls
+    # the seq arm serves both unscored batches; the scored one takes the
+    # k-mer path
+    assert len(seq_calls) == 2 and len(kmer_calls) == 1 and not batch_calls
 
 
 def test_default_minimizer_engine_serves_counts_batch_kmers(monkeypatch):
     """The default minimizer config (tile_rows 32, w = 11, slot scheme 3)
-    has int32 cols and takes the k-mer path too."""
+    has int32 cols: the seq arm serves its unscored batches, and with the
+    seq arm off, the k-mer path does."""
     config, queries = build_index("te-default-cols", "minimizer", 32)
     port = bigsi_tpu_torch.BIGSI(config, device="cpu")
     engine = port.engine
     assert engine.run_len == 6 and engine.slot_scheme == 3
     assert engine.cols is not None and engine.cols.dtype == torch.int32 and engine.words is None
-    assert engine.supports_kmer_batch()
+    assert engine.supports_kmer_batch() and engine.supports_seq_batch()
+    seq_calls = spy(monkeypatch, DeviceEngine, "counts_batch_seqs")
     kmer_calls = spy(monkeypatch, DeviceEngine, "counts_batch_kmers")
     batch_calls = spy(monkeypatch, DeviceEngine, "counts_batch")
     host = bigsi_tpu.BIGSI(config)
     for threshold in (1.0, 0.7):
         assert port.search_batch(queries, threshold) == host.search_batch(queries, threshold)
-    assert len(kmer_calls) == 2 and not batch_calls
+    assert len(seq_calls) == 2 and not kmer_calls and not batch_calls
+    monkeypatch.setattr(engine, "supports_seq_batch", lambda: False)
+    for threshold in (1.0, 0.7):
+        assert port.search_batch(queries, threshold) == host.search_batch(queries, threshold)
+    assert len(seq_calls) == 2 and len(kmer_calls) == 2 and not batch_calls
 
 
 def test_kmer_streams_cross_at_32_bits_and_widen_on_the_device():
@@ -285,6 +294,7 @@ def test_counts_batch_kmers_in_chunks_overlaps_the_next_prep(monkeypatch):
     config, queries = build_index("te-chunks", "minimizer", 16, **HEADLINE)
     port = bigsi_tpu_torch.BIGSI(config, device="cpu")
     host = bigsi_tpu.BIGSI(config)
+    monkeypatch.setattr(port.engine, "supports_seq_batch", lambda: False)  # the k-mer path
     monkeypatch.setattr(DeviceEngine, "SERVE_CHUNK", 4)
     sizes = [4, 4, 4, 4, 1]  # 17 queries
     started = [threading.Event() for _ in sizes]

@@ -25,12 +25,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 31
 
 # runs in a fresh interpreter, so tests/conftest.py (which imports jax)
-# is never loaded: the port's CLI, with its engine on the CPU
+# is never loaded: the port's CLI, with its engine on the CPU (the
+# minimizer index's bulk_search takes the seq arm, kernel H's plain version)
 CLI_SCRIPT = """
 import json, sys
+from bigsi_tpu_torch.ops import prep
 from bigsi_tpu_torch.__main__ import make_parser, run
+real, preps = prep.prep_streams, []
+prep.prep_streams = lambda *a, **kw: preps.append(1) or real(*a, **kw)
 out = [run(make_parser().parse_args(argv), device="cpu") for argv in json.loads(sys.argv[1])]
-print(json.dumps({"outputs": out, "jax_loaded": "jax" in sys.modules}))
+print(json.dumps({"outputs": out, "jax_loaded": "jax" in sys.modules, "seq_preps": len(preps)}))
 """
 
 
@@ -74,6 +78,7 @@ def test_cli_search_and_bulk_search_without_jax(tmp_path, layout):
     assert proc.returncode == 0, proc.stderr
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["jax_loaded"] is False
+    assert got["seq_preps"] == (2 if layout == "minimizer" else 0)  # the two bulk_searches
     want = [host_run(make_parser().parse_args(argv)) for argv in argvs]
     assert got["outputs"] == want
     assert json.loads(want[0])["results"], "the exact search hits"
