@@ -328,12 +328,40 @@ constexpr size_t kStageBytes = 32 * 1024;  // shared memory for staged k-mers
 //   [(cols[utile[b, u], n] & g) == g] - (U * R - n_valid[b]) out, as the
 //   JAX program writes it (padding slots compare true and are
 //   subtracted), plus exact[b, w]: the AND over the slots with g != 0,
-//   bit n % 32 of word n / 32 (all ones when no slot is valid).  One
-//   thread per sample reads each gathered cols row coalesced; the
-//   query's tiles and masks are staged in shared memory first, and the
-//   cols reads of kUnroll entries are issued before any is consumed.
-//   The JAX program's two half-U chains and int16 accumulator served
-//   the TPU's vector unit and are not ported.
+//   bit n % 32 of word n / 32 (all ones when no slot is valid).  The
+//   JAX program's two half-U chains and int16 accumulator served the
+//   TPU's vector unit and are not ported.  Its design for Hopper:
+//   - Live slots only.  A valid k-mer's mask has h >= 1 bits, so the
+//     block keeps, per chunk of entries, only the slots whose mask is
+//     nonzero once cut to the cols width (a block scan compacts them in
+//     entry order; entries with none are dropped and never read).
+//     Padding slots compare true, so counts = hits over the live slots
+//     + n_valid - live: bit-equal to the contract in every case,
+//     overflowed streams included, with no work spent on padding (at
+//     least 64 % of the slots at R = 20, 37 % at R = 6).
+//   - Several samples per register.  A thread owns one 16-byte vector
+//     of a cols row: 16 samples of uint8, 8 of 16 bits or 4 of 32.  A
+//     field is in when ~x & g is zero there (g repeated in every field):
+//     d = ~x & g; miss = ((d & low) + low) | d sets a field's top bit iff
+//     d != 0 there (low = 0x7F.. or 0x7FFF.. per field), so one add and
+//     three logic ops test a whole register.  The in-flags add into
+//     packed per-field counters, flushed into 32-bit counters before a
+//     field can wrap (every 255 live slots at 8 bits, 65,535 at 16).
+//   - Asynchronous copy.  An entry's slice of its cols row is one
+//     contiguous run, so thread 0 keeps a ring of kEStages slices in
+//     flight with 1-D bulk copies (cp.async.bulk, TMA) into shared
+//     memory, each completing on its own mbarrier; all threads consume
+//     the slices in order and a block barrier frees each stage before
+//     it is refilled.  No thread spends registers or issue slots on the
+//     loads.
+//   - Sizing.  A block of kEThreads = 64 threads takes one query and a
+//     1 KB slice of the row (kESliceBytes): grid (B, row bytes / 1 KB),
+//     so at B = 256 and N = 1,024 the grid is 512 blocks at 16-bit cols
+//     and 1,024 at 32-bit.  A ring of 16 stages is 16 KB; the staged
+//     masks of a chunk take at most 16 KB more (the whole query at
+//     U = 72, R = 20 or U = 136, R = 6), so 6-9 blocks fit an SM and
+//     every SM holds 4-8 of them, 64-128 KB of rows in flight per SM --
+//     what HBM's latency needs at full rate.
 //
 // Offsets into cols are size_t: t * N reaches 1.6e9 elements.
 
@@ -373,59 +401,269 @@ pack_tile_cols_kernel(const unsigned* __restrict__ words, int W, int64_t num_til
   }
 }
 
-// grid (B, ceil(N / kColsThreads)); thread n of the block's slice owns
-// sample n.  N = W * 32, so a warp is one word of exact.
+// -- kernel E's pieces: the bulk-copy ring and the packed field test
+
+constexpr int kEThreads = 64;                   // threads per block, a 16-byte vector each
+constexpr int kESliceBytes = kEThreads * 16;    // bytes of a cols row per block
+constexpr int kEStages = 16;                    // slices in flight per block
+constexpr size_t kEMaskBytes = 16 * 1024;       // staged masks of one chunk of entries
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// The bytes of one bulk copy into `dst`, counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+// Per-thread state of kernel E for cols elements of type T: a 16-byte
+// vector holds kSamples samples, kPer to a 32-bit register.
 template <typename T>
-__global__ void __launch_bounds__(kColsThreads)
+struct ColsAcc {
+  static constexpr int kBits = 8 * sizeof(T);
+  static constexpr int kPer = 4 / sizeof(T);
+  static constexpr int kSamples = 4 * kPer;
+  // a field's bits below its top one, and the most live slots a packed
+  // field counter takes before it is flushed
+  static constexpr unsigned kLow = kBits == 8 ? 0x7F7F7F7Fu : 0x7FFF7FFFu;
+  static constexpr int kLimit = kBits == 8 ? 255 : 65535;
+  unsigned packed[4];  // per-field hit counters (narrow types)
+  unsigned all[4];     // per-field in-flags ANDed over the live slots
+  int hits[kSamples];
+  int since;           // live slots since the last flush
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      packed[k] = 0u;
+      all[k] = kAllOnes;
+    }
+#pragma unroll
+    for (int i = 0; i < kSamples; ++i) hits[i] = 0;
+    since = 0;
+  }
+
+  __device__ __forceinline__ void flush() {
+    if constexpr (kBits != 32) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int f = 0; f < kPer; ++f) {
+          hits[k * kPer + f] += (packed[k] >> (f * kBits)) & ((1u << kBits) - 1u);
+        }
+        packed[k] = 0u;
+      }
+      since = 0;
+    }
+  }
+
+  // One live slot with mask g (cut to T) against the vector x.
+  __device__ __forceinline__ void test(const uint4& v, unsigned g) {
+    const unsigned x[4] = {v.x, v.y, v.z, v.w};
+    if constexpr (kBits == 32) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned in = (~x[k] & g) == 0u;
+        hits[k] += in;
+        all[k] &= in ? kAllOnes : 0u;
+      }
+    } else {
+      const unsigned rep = kBits == 8 ? g * 0x01010101u : g * 0x00010001u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned d = ~x[k] & rep;
+        const unsigned miss = ((d & kLow) + kLow) | d;  // a field's top bit: it misses
+        packed[k] += (~miss & ~kLow) >> (kBits - 1);
+        all[k] &= ~miss;
+      }
+      if (++since == kLimit) flush();
+    }
+  }
+
+  // Bit i: sample i of the vector is in at every live slot.
+  __device__ __forceinline__ unsigned exact_bits() const {
+    unsigned out = 0u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int f = 0; f < kPer; ++f) {
+        out |= ((all[k] >> (f * kBits + kBits - 1)) & 1u) << (k * kPer + f);
+      }
+    }
+    return out;
+  }
+};
+
+// Exclusive prefix sum of v over the block; `total` gets the sum.
+__device__ __forceinline__ unsigned block_exclusive_sum(unsigned v, unsigned* s_warp,
+                                                        unsigned& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned y = __shfl_up_sync(kAllOnes, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  unsigned before = 0u, sum = 0u;
+  for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i) {
+    if (i < warp) before += s_warp[i];
+    sum += s_warp[i];
+  }
+  total = sum;
+  return before + x - v;
+}
+
+// grid (B, ceil(row bytes / kESliceBytes)), kEThreads threads: block
+// (b, y) takes query b and bytes [y * kESliceBytes, +kESliceBytes) of
+// every cols row.  Dynamic shared memory: the ring [kEStages]
+// [kESliceBytes], then per chunk of kc entries [kc * R] masks cut to T,
+// [kc * R] live masks, [kc] tiles of the live entries and [kc + 1]
+// offsets of their first live mask.  cols must be 16-byte aligned.
+template <typename T>
+__global__ void __launch_bounds__(kEThreads)
 cols_counts_kernel(const T* __restrict__ cols, int W, const int32_t* __restrict__ utile,
                    const int64_t* __restrict__ gmask, const int32_t* __restrict__ n_valid,
                    int U, int R, int kc, int32_t* __restrict__ counts,
                    int32_t* __restrict__ exact) {
-  extern __shared__ unsigned s_g[];  // [kc * R] masks cut to T's width, then [kc] tiles
-  int32_t* s_tile = reinterpret_cast<int32_t*>(s_g + static_cast<size_t>(kc) * R);
+  using Acc = ColsAcc<T>;
+  extern __shared__ __align__(16) unsigned char e_smem[];
+  __shared__ __align__(8) uint64_t s_full[kEStages];
+  __shared__ unsigned s_warp[kEThreads / 32];
+  unsigned char* ring = e_smem;
+  unsigned* s_g = reinterpret_cast<unsigned*>(ring + kEStages * kESliceBytes);
+  unsigned* s_live = s_g + static_cast<size_t>(kc) * R;
+  int32_t* s_etile = reinterpret_cast<int32_t*>(s_live + static_cast<size_t>(kc) * R);
+  int32_t* s_eoff = s_etile + kc;
+
+  const int tid = threadIdx.x;
   const int b = blockIdx.x;
-  const int N = W * 32;
-  const int n = blockIdx.y * kColsThreads + threadIdx.x;
-  const bool live = n < N;
+  const size_t row_bytes = static_cast<size_t>(W) * 32 * sizeof(T);
+  const size_t slice_off = static_cast<size_t>(blockIdx.y) * kESliceBytes;
+  const unsigned slice_len =
+      static_cast<unsigned>(min(static_cast<size_t>(kESliceBytes), row_bytes - slice_off));
+  const bool active = static_cast<unsigned>(tid) * 16u < slice_len;
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(cols) + slice_off;
   const int32_t* q_tile = utile + static_cast<size_t>(b) * U;
   const int64_t* q_mask = gmask + static_cast<size_t>(b) * U * R;
-  int hits = 0;
-  bool all = true;
+
+  if (tid == 0) {
+    for (int s = 0; s < kEStages; ++s) mbar_init(&s_full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  Acc acc;
+  acc.init();
+  int live = 0;       // live slots of the query so far
+  unsigned seq = 0;   // slices loaded so far: load q uses stage q % kEStages
   for (int u0 = 0; u0 < U; u0 += kc) {
     const int m = min(kc, U - u0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < m * R; i += blockDim.x) {
+    for (int i = tid; i < m * R; i += kEThreads) {
       s_g[i] = static_cast<T>(q_mask[static_cast<size_t>(u0) * R + i]);
     }
-    for (int i = threadIdx.x; i < m; i += blockDim.x) s_tile[i] = q_tile[u0 + i];
     __syncthreads();
-    if (!live) continue;
-    for (int e = 0; e < m; e += kUnroll) {
-      unsigned c[kUnroll];
-#pragma unroll
-      for (int q = 0; q < kUnroll; ++q) {
-        c[q] = e + q < m ? static_cast<unsigned>(
-                               __ldg(cols + static_cast<size_t>(s_tile[e + q]) * N + n))
-                         : 0u;
+    // compact: each thread takes a contiguous run of entries, and one
+    // scan over (live slots << 16 | live entries) places them in order
+    const int per = (m + kEThreads - 1) / kEThreads;
+    const int e0 = min(m, tid * per);
+    const int e1 = min(m, e0 + per);
+    unsigned mine = 0u;
+    for (int e = e0; e < e1; ++e) {
+      unsigned c = 0u;
+      for (int j = 0; j < R; ++j) c += s_g[e * R + j] != 0u;
+      mine += (c << 16) | (c != 0u);
+    }
+    unsigned total;
+    const unsigned at = block_exclusive_sum(mine, s_warp, total);
+    unsigned slot = at >> 16, ent = at & 0xFFFFu;
+    for (int e = e0; e < e1; ++e) {
+      const unsigned first = slot;
+      for (int j = 0; j < R; ++j) {
+        const unsigned g = s_g[e * R + j];
+        if (g != 0u) s_live[slot++] = g;
       }
-#pragma unroll
-      for (int q = 0; q < kUnroll; ++q) {
-        if (e + q >= m) break;
-        const unsigned* g = s_g + static_cast<size_t>(e + q) * R;
-        for (int j = 0; j < R; ++j) {
-          const bool in = (c[q] & g[j]) == g[j];
-          hits += in;
-          all = all && (in || g[j] == 0u);
-        }
+      if (slot != first) {
+        s_etile[ent] = q_tile[u0 + e];
+        s_eoff[ent++] = static_cast<int32_t>(first);
       }
     }
+    const int n_ent = static_cast<int>(total & 0xFFFFu);
+    if (tid == 0) s_eoff[n_ent] = static_cast<int32_t>(total >> 16);
+    live += static_cast<int>(total >> 16);
+    __syncthreads();
+
+    // the ring over the chunk's live entries
+    if (tid == 0) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      for (int i = 0; i < min(kEStages, n_ent); ++i) {
+        const int s = (seq + i) % kEStages;
+        bulk_load(ring + s * kESliceBytes, src + static_cast<size_t>(s_etile[i]) * row_bytes,
+                  slice_len, &s_full[s]);
+      }
+    }
+    for (int i = 0; i < n_ent; ++i) {
+      const unsigned q = seq + i;
+      const int s = q % kEStages;
+      mbar_wait(&s_full[s], (q / kEStages) & 1u);
+      if (active) {
+        const uint4 v = *reinterpret_cast<const uint4*>(ring + s * kESliceBytes + tid * 16);
+        const int j1 = s_eoff[i + 1];
+        for (int j = s_eoff[i]; j < j1; ++j) acc.test(v, s_live[j]);
+      }
+      __syncthreads();  // stage s is consumed
+      if (tid == 0 && i + kEStages < n_ent) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        bulk_load(ring + s * kESliceBytes,
+                  src + static_cast<size_t>(s_etile[i + kEStages]) * row_bytes, slice_len,
+                  &s_full[s]);
+      }
+    }
+    seq += n_ent;
   }
-  const unsigned word = __ballot_sync(kAllOnes, all);
-  if (!live) return;
-  const int64_t pad = static_cast<int64_t>(U) * R - n_valid[b];
-  counts[static_cast<size_t>(b) * N + n] = static_cast<int32_t>(hits - pad);
-  if ((threadIdx.x & 31) == 0) {
-    exact[static_cast<size_t>(b) * W + n / 32] = static_cast<int32_t>(word);
+  acc.flush();
+
+  // counts: the live hits + n_valid - live; exact: Acc::kSamples bits a
+  // thread, 32 / kSamples lanes to a word
+  constexpr int kGroup = 32 / Acc::kSamples;
+  const int lane = tid & 31;
+  unsigned word = active ? acc.exact_bits() << ((lane % kGroup) * Acc::kSamples) : 0u;
+#pragma unroll
+  for (int d = 1; d < kGroup; d <<= 1) word |= __shfl_xor_sync(kAllOnes, word, d);
+  if (!active) return;
+  const size_t n0 = slice_off / sizeof(T) + static_cast<size_t>(tid) * Acc::kSamples;
+  const int extra = n_valid[b] - live;
+  int4* out = reinterpret_cast<int4*>(counts + static_cast<size_t>(b) * W * 32 + n0);
+#pragma unroll
+  for (int i = 0; i < Acc::kSamples / 4; ++i) {
+    out[i] = make_int4(acc.hits[4 * i] + extra, acc.hits[4 * i + 1] + extra,
+                       acc.hits[4 * i + 2] + extra, acc.hits[4 * i + 3] + extra);
+  }
+  if (lane % kGroup == 0) {
+    exact[static_cast<size_t>(b) * W + n0 / 32] = static_cast<int32_t>(word);
   }
 }
 
@@ -443,12 +681,21 @@ template <typename T>
 int launch_cols_counts(const void* cols, int W, const void* utile, const void* gmask,
                        const void* n_valid, int B, int U, int R, void* counts, void* exact,
                        cudaStream_t stream) {
-  const size_t per_entry = sizeof(int32_t) + static_cast<size_t>(R) * sizeof(unsigned);
-  if (per_entry > kStageBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const int kc = static_cast<int>(std::max<size_t>(1, std::min<size_t>(U, kStageBytes / per_entry)));
-  const size_t smem = static_cast<size_t>(kc) * per_entry;
-  const dim3 grid(B, (W * 32 + kColsThreads - 1) / kColsThreads);
-  cols_counts_kernel<T><<<grid, kColsThreads, smem, stream>>>(
+  if (reinterpret_cast<uintptr_t>(cols) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // two copies of an entry's masks, its tile and its offset
+  const size_t per_entry = 2 * static_cast<size_t>(R) * sizeof(unsigned) + 2 * sizeof(int32_t);
+  const size_t budget = std::max(kEMaskBytes, per_entry);
+  const int kc = static_cast<int>(std::max<size_t>(1, std::min<size_t>(U, budget / per_entry)));
+  const size_t smem = static_cast<size_t>(kEStages) * kESliceBytes +
+                      static_cast<size_t>(kc) * per_entry + sizeof(int32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cols_counts_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t row_bytes = static_cast<size_t>(W) * 32 * sizeof(T);
+  const dim3 grid(B, static_cast<unsigned>((row_bytes + kESliceBytes - 1) / kESliceBytes));
+  cols_counts_kernel<T><<<grid, kEThreads, smem, stream>>>(
       static_cast<const T*>(cols), W, static_cast<const int32_t*>(utile),
       static_cast<const int64_t*>(gmask), static_cast<const int32_t*>(n_valid), U, R, kc,
       static_cast<int32_t*>(counts), static_cast<int32_t*>(exact));
@@ -957,9 +1204,9 @@ int pack_tile_cols(const void* words, int W, int64_t num_tiles, int tile_rows,
   }
 }
 
-// cols [T, W * 32] of elem_bytes 1, 2 or 4; utile int32[B, U], every id
-// in [0, T); gmask int64[B, U, R]; n_valid int32[B]; counts
-// int32[B, W * 32]; exact int32[B, W].
+// cols [T, W * 32] of elem_bytes 1, 2 or 4, 16-byte aligned; utile
+// int32[B, U], every id in [0, T); gmask int64[B, U, R]; n_valid
+// int32[B]; counts int32[B, W * 32]; exact int32[B, W].
 int cols_counts(const void* cols, int W, int elem_bytes, const void* utile,
                 const void* gmask, const void* n_valid, int B, int U, int R,
                 void* counts, void* exact, void* stream) {

@@ -1,3 +1,3 @@
-from bigsi_tpu_torch.graph.bigsi import BIGSI
+from bigsi_tpu_torch.graph.bigsi import BIGSI, BigsiQueryResult
 
-__all__ = ["BIGSI"]
+__all__ = ["BIGSI", "BigsiQueryResult"]

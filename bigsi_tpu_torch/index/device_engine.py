@@ -2,7 +2,7 @@
 
 The port of ``bigsi_tpu/index/device_engine.py:DeviceEngine`` for
 search.  Same method surface as
-:class:`bigsi_tpu.index.host_engine.HostEngine` (numpy in, numpy out),
+:class:`bigsi_tpu_torch.index.host_engine.HostEngine` (numpy in, numpy out),
 so it plugs into the facade's engine seam.  The matrix goes to the
 device once, row-major, as ``int32[m_pad, W]`` holding the uint32 bits
 (:func:`load_words`); the tiled layouts zero-pad it to whole tiles, and
@@ -31,7 +31,7 @@ only sync before the counts come back; a batch that overflows the entry
 budget, or that the geometry guard refuses, returns None and takes the
 host paths.  On a cols engine with slot scheme 2 or 3 and the native
 library, ``counts_batch_kmers`` serves the other batches straight from
-ASCII k-mers: bigsi_tpu's threaded native prep builds the grouped
+ASCII k-mers: the threaded native prep builds the grouped
 streams, the next chunk's prep overlapping the current chunk's kernel.
 A single query reduces through its layout's kernel as a batch of one;
 scoring's presence rows come from the plain ops.  PyTorch compiles
@@ -47,16 +47,16 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from bigsi_tpu import native
-from bigsi_tpu.hashing.scheme import (
+from bigsi_tpu_torch import native
+from bigsi_tpu_torch.hashing.scheme import (
     MINIMIZER_SEED,
     TILE_ROWS,
     default_minimizer_s,
     default_run_len,
     window_to_s,
 )
-from bigsi_tpu.matrix.bitmatrix import BitSliceMatrix
-from bigsi_tpu.utils.profiling import phase
+from bigsi_tpu_torch.matrix.bitmatrix import BitSliceMatrix
+from bigsi_tpu_torch.utils.profiling import phase
 from bigsi_tpu_torch.ops import lookup as plain
 from bigsi_tpu_torch.ops.fused_lookup import (
     classic_counts,

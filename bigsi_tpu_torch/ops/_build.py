@@ -1,9 +1,10 @@
-"""Build and load the port's CUDA sources (``bigsi_tpu_torch/csrc``).
+"""Build and load the port's native sources (``bigsi_tpu_torch/csrc``).
 
-At first use, ``nvcc`` compiles a source into a shared library with a
-plain C interface under ``build/bigsi_tpu_torch/`` at the root of the
-checkout, and ``ctypes`` loads it.  The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt and a
+At first use, a compiler (``nvcc`` for the CUDA sources, the host C++
+compiler for ``host_native.cpp``) builds a source into a shared library
+with a plain C interface under ``build/bigsi_tpu_torch/`` at the root of
+the checkout, and ``ctypes`` loads it.  The library's file name carries
+a hash of the source and the flags, so an edited source is rebuilt and a
 built one is reused.  Nothing here runs at import: the CPU tests import
 every module of the package on a machine without ``nvcc``.
 """
@@ -44,33 +45,36 @@ def nvcc() -> str:
     )
 
 
-def library_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+def library_path(source: str, flags=NVCC_FLAGS) -> Path:
+    text = (CSRC / source).read_bytes() + " ".join(flags).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / ("%s-%s.so" % (Path(source).stem, digest))
 
 
-def compile_source(source: str, out: Path) -> None:
-    """Run nvcc on ``csrc/<source>`` into the library ``out``."""
+def compile_source(source: str, out: Path, compiler: str | None = None,
+                   flags=NVCC_FLAGS) -> None:
+    """Compile ``csrc/<source>`` into the library ``out`` (by default
+    with nvcc and NVCC_FLAGS)."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / source)]
+    compiler = compiler or nvcc()
+    cmd = [compiler, *flags, "-o", str(out), str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            "nvcc failed on %s (exit %d):\n%s"
-            % (source, proc.returncode, proc.stderr)
+            "%s failed on %s (exit %d):\n%s"
+            % (Path(compiler).name, source, proc.returncode, proc.stderr)
         )
 
 
-def build(source: str) -> Path:
+def build(source: str, compiler: str | None = None, flags=NVCC_FLAGS) -> Path:
     """Compile ``csrc/<source>`` unless its library is already built."""
-    out = library_path(source)
+    out = library_path(source, flags)
     if out.exists():
         return out
     # a private name, then an atomic rename: concurrent builders never
     # load a half-written library
     tmp = out.with_name("%s.%d.tmp" % (out.name, os.getpid()))
-    compile_source(source, tmp)
+    compile_source(source, tmp, compiler, flags)
     os.replace(tmp, out)
     return out
 

@@ -295,6 +295,8 @@ def cols_counts(
     w = cols.shape[1] // 32
     if b == 0 or w == 0:
         return count_outputs(cols, b, w)
+    if cols.data_ptr() % 16:
+        raise ValueError("cols must start on a 16-byte boundary (the kernel's bulk copies)")
     args = (cols.data_ptr(), w, cols.dtype.itemsize, utile.data_ptr(), gmask.data_ptr(),
             n_valid.data_ptr(), b, u, r)
     return launch(cols_counts, cols.device, args, count_outputs(cols, b, w))

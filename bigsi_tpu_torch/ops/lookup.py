@@ -7,7 +7,9 @@ Counterparts of ``bigsi_tpu/ops/lookup.py`` (``and_rows_jnp``,
 ``pack_tile_cols``, ``grouped_counts_cols``, ``cols_presence``),
 re-stated here because that module imports jax, and the plain versions
 of the probes' kernels (``gather_rows``, ``tile_xor``, and
-``blocked_counts`` without exact).  They are the
+``blocked_counts`` without exact); ``field_hits`` and
+``grouped_counts_cols_live`` restate kernel E's own arithmetic (its
+packed field test and its live-slot counts).  They are the
 reference of the CUDA kernels in :mod:`bigsi_tpu_torch.ops.fused_lookup`:
 the kernels' wrappers run them for tensors on the CPU, the CPU tests
 hold them against the JAX functions, and ``chip_smoke.py`` holds the
@@ -294,4 +296,52 @@ def grouped_counts_cols(cols, utile, gmask, n_valid):
         counts += hit.sum(dim=1, dtype=torch.int32)
         every &= (hit | (gj == 0)).all(dim=1)
     counts -= (u * r - n_valid.to(torch.int32))[:, None]
+    return counts, pack_bits(every)
+
+
+FIELD_LOW = {8: 0x7F7F7F7F, 16: 0x7FFF7FFF}  # a field's bits below its top one
+
+
+def field_hits(x: torch.Tensor, g: torch.Tensor, bits: int) -> torch.Tensor:
+    """Kernel E's packed presence test on 32-bit words of ``bits``-wide
+    fields (8 or 16): x and g int64 holding the words, g a slot mask
+    repeated in every field -> the word with the top bit of field f set
+    iff ``(x_f & g_f) == g_f``.  ``d = ~x & g`` is zero in exactly the
+    fields that are in; adding the bits below a field's top one to
+    ``low`` carries into the top bit iff any is set, and OR-ing ``d``
+    adds the top bit itself; no carry crosses a field."""
+    low = FIELD_LOW[bits]
+    d = ~x & g & 0xFFFFFFFF
+    return ~(((d & low) + low) | d) & (low ^ 0xFFFFFFFF)
+
+
+def _in_flags(rows: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """cols rows [L, N], cut masks [L] -> bool [L, N], ``(x & g) == g``
+    as kernel E tests it: narrow rows as 32-bit words through
+    :func:`field_hits`."""
+    bits = torch.iinfo(rows.dtype).bits
+    if bits == 32:
+        return (rows & g[:, None]) == g[:, None]
+    words = rows.contiguous().view(torch.int32).long() & 0xFFFFFFFF  # little-endian fields
+    rep = (g.long() & ((1 << bits) - 1)) * (0x01010101 if bits == 8 else 0x00010001)
+    flags = field_hits(words, rep[:, None], bits)
+    tops = torch.arange(bits - 1, 32, bits, device=rows.device)
+    return ((flags[..., None] >> tops) & 1).bool().flatten(-2)
+
+
+def grouped_counts_cols_live(cols, utile, gmask, n_valid):
+    """Kernel E's own arithmetic, plain: per query, the live slots (mask
+    nonzero once cut to the cols type) in entry order; ``counts = hits
+    over the live slots + n_valid - live`` and ``exact`` the AND over
+    them.  Equal to :func:`grouped_counts_cols` bit for bit, since a
+    padding slot compares true."""
+    b = utile.shape[0]
+    gm = narrow_bits(gmask, cols.dtype)
+    counts = torch.empty((b, cols.shape[1]), dtype=torch.int32, device=cols.device)
+    every = torch.empty((b, cols.shape[1]), dtype=torch.bool, device=cols.device)
+    for q in range(b):
+        ent, slot = (gm[q] != 0).nonzero(as_tuple=True)  # row-major: entry order
+        hit = _in_flags(cols[utile[q, ent].long()], gm[q, ent, slot])
+        counts[q] = hit.sum(dim=0, dtype=torch.int32) + int(n_valid[q]) - ent.numel()
+        every[q] = hit.all(dim=0)
     return counts, pack_bits(every)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from bigsi_tpu.hashing.scheme import MINIMIZER_SEED
+from bigsi_tpu_torch.hashing.scheme import MINIMIZER_SEED
 
 SIGN = -(1 << 63)  # int64 with only bit 63 set
 MAX_SEQ_TILE_ROWS = 32  # slot masks of the seq arm are 32 bits, as in JAX

@@ -3,7 +3,7 @@
 Sampling every bit of a full-size matrix in numpy takes minutes (m = 2.5e7
 rows of 1,024 samples is 2.6e10 bits), so :func:`synth_index` draws the
 bits with a seeded ``torch.Generator`` on its own device, a chunk of rows
-at a time, and writes the packed words through bigsi_tpu's storage layer.
+at a time, and writes the packed words through the storage layer.
 Planted samples are real blooms (``BIGSI.bloom``), so they use the
 index's own layout and slot scheme, and every ``ksi:`` key is written, so
 the index reopens with the scheme it was drawn for.
@@ -16,13 +16,13 @@ import math
 import numpy as np
 import torch
 
-from bigsi_tpu.graph import bigsi as host_facade
-from bigsi_tpu.graph.metadata import SampleMetadata
-from bigsi_tpu.hashing.scheme import default_slot_scheme
-from bigsi_tpu.index.signature import persist_index_params
-from bigsi_tpu.kmers import seq_to_kmers
-from bigsi_tpu.matrix.bitmatrix import BitSliceMatrix
-from bigsi_tpu.storage import get_storage
+from bigsi_tpu_torch.graph import BIGSI
+from bigsi_tpu_torch.graph.metadata import SampleMetadata
+from bigsi_tpu_torch.hashing.scheme import default_slot_scheme
+from bigsi_tpu_torch.index.signature import persist_index_params
+from bigsi_tpu_torch.kmers import seq_to_kmers
+from bigsi_tpu_torch.matrix.bitmatrix import BitSliceMatrix
+from bigsi_tpu_torch.storage import get_storage
 
 
 def bloom_density(h: int, kmers_per_sample: int, m: int) -> float:
@@ -52,7 +52,7 @@ def synth_index(
     dev = generator.device
     cols = [
         torch.from_numpy(
-            np.asarray(host_facade.BIGSI.bloom(config, seq_to_kmers(s, k)), dtype=bool)
+            np.asarray(BIGSI.bloom(config, seq_to_kmers(s, k)), dtype=bool)
         ).to(dev)
         for s in planted
     ]

@@ -7,21 +7,27 @@ matrix, 3.2 GB on the card; batches of 256 queries of 542 bp (512
 k-mers each), the shape of bench.py.  Phases:
 
 1. device: a CUDA device is required; prints its name and power limit;
-2. build: compiles bigsi_tpu_torch/csrc/lookup.cu with nvcc;
+2. build: nvcc of bigsi_tpu_torch/csrc/lookup.cu and g++ of the port's
+   host native library (csrc/host_native.cpp), started together, both
+   into this checkout's build/;
 3. kernels: kernels A (classic_counts), B (tile_counts), C
    (grouped_tile_counts), D (pack_tile_cols) and E (cols_counts) agree
    bit for bit with their plain PyTorch versions, at the slice's shapes
    (the full-size matrix, B = 256, K = 512, grouped streams of runs of
    tiles as the minimizer layout makes them, D and E at tile_rows 16
-   and 32) and at ragged ones (W 1 and 33, tile_rows 8 to 64, R 1, 6
-   and 20, U not a multiple of 16, empty and all-padding queries, B or
-   K of 0); then kernel H (seq_streams) agrees bit for bit with
+   and 32) and at ragged ones (W 1 and 33, tile_rows 8 to 64, so E on
+   uint8, int16 and int32 cols, R 1, 6 and 20, U not a multiple of 16
+   or of E's ring of 16, U = 4,000 at R = 20 (past a 16-bit field
+   counter, many staged chunks), empty and all-padding queries, B or K
+   of 0); then kernel H (seq_streams) agrees bit for bit with
    ops/prep.py:prep_streams on utile, gmask, n_valid and ok at the
    slice's shapes (B = 256 queries padded to 576 bytes, both cols
    configs, the engine's safe and tight budgets) and at ragged ones
    (B = 1, lengths 0, below k and k, k = 32 poly-T, k = 15, planted
    repeats, a query beside its reverse complement, num_tiles 2^20 and
-   1, budgets that overflow, 4,096 bytes at B = 8, h = 10);
+   1, budgets that overflow, 4,096 bytes at B = 8, h = 10), and kernel
+   E agrees with its plain version on every one of those streams,
+   overflowed ones included, over random cols of the case's tiles;
 4.-8. five indexes, each an in-memory index of random rows at the bit
    density of scripts/synth_index.py, drawn on the card, with 4 planted
    samples: classic (kernel A), blocked at tile_rows 32 (kernel B),
@@ -52,8 +58,9 @@ k-mers each), the shape of bench.py.  Phases:
    kernel beside its plain version on the inputs the facade gave the
    engine: kernel H on the facade's own bytes, kernel E on H's streams
    and on the native prep's, kernel C on H's streams over the row-major
-   words; kernel D once on the full-size matrix, and kernel C on the
-   minimizer/16 native prep streams;
+   words, with E's and C's bounds, GB/s and shares of bound; kernel D
+   once on the full-size matrix, and kernel C on the minimizer/16
+   native prep streams;
 10. probes: the three probe entry points of bigsi_tpu_torch.scripts
    (probe_multidma, bisect, microbench) run in-process over the
    blocked/32 index's resident words (tile_rows 32: 4 KB tiles; S2 views
@@ -70,11 +77,15 @@ k-mers each), the shape of bench.py.  Phases:
    microbench case, each kernel checked against its plain version and
    timed beside it, pallas-work (kernel C over the pre-gathered tiles)
    checked equal to kernel C over the words; kernels F, G, B (both
-   builds) and C must have launched, and no other.
+   builds) and C must have launched, and no other.  torch's
+   index_select of S2's rows is timed as kernel F's yardstick.
 
-Then one JSON line of the kernels, and last the JSON line
-{"ok": true, "device": {...}}.  Any failure exits non-zero; with no
-CUDA device it exits 1 before printing any result.
+Then a check that no module of bigsi_tpu or jax was loaded, one JSON
+line of the kernels (each with its time, its plain version's, the
+least time its bytes allow on an H100 (3.35 TB/s) for this run's
+inputs, and the one-call PyTorch yardstick where there is one), and
+last the JSON line {"ok": true, "device": {...}}.  Any failure exits
+non-zero; with no CUDA device it exits 1 before printing any result.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -157,6 +168,92 @@ def kernel_fns():
     return {name: getattr(fused_lookup, name) for name, _ in KERNELS}
 
 
+# -- the least time of each kernel's work ---------------------------------
+
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM (NVIDIA's data sheet)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def popcount64(x):
+    """The set bits of each int64 of ``x``."""
+    import torch
+
+    count = torch.zeros_like(x)
+    for bit in range(64):
+        count += (x >> bit) & 1
+    return count
+
+
+def count_bytes(b: int, w: int) -> int:
+    """counts int32[B, W * 32] and exact int32[B, W], written once."""
+    return b * w * 33 * 4
+
+
+def bound_bytes(name: str, *args) -> int:
+    """The bytes kernel ``name`` must move on the arguments of the timed
+    call: each input it needs read once, each output written once.  A
+    gathered row counts once per k-mer or entry that selects it (the
+    rows are random, the L2 holds 50 MB); padding selects nothing, and
+    a grouped entry reads the rows its slots' masks select (kernel C)
+    or its cols row when any slot is live (kernel E)."""
+    from bigsi_tpu_torch.ops import lookup as plain
+
+    if name == "classic_counts":
+        words, idx, mask = args
+        w = words.shape[1]
+        rows = int(mask.sum()) * idx.shape[2]
+        return rows * w * 4 + nbytes(idx, mask) + count_bytes(idx.shape[0], w)
+    if name == "tile_counts":
+        words, tile, smask = args[:3]
+        w = words.shape[1]
+        rows = int(popcount64(smask).sum())
+        return rows * w * 4 + nbytes(tile, smask) + count_bytes(tile.shape[0], w)
+    if name == "grouped_tile_counts":
+        words, utile, gmask, tile_rows = args
+        union = gmask[..., 0]
+        for j in range(1, gmask.shape[2]):
+            union = union | gmask[..., j]
+        if tile_rows < 64:
+            union = union & ((1 << tile_rows) - 1)
+        w = words.shape[1]
+        rows = int(popcount64(union).sum())
+        return rows * w * 4 + nbytes(utile, gmask) + count_bytes(utile.shape[0], w)
+    if name == "pack_tile_cols":
+        words, tile_rows = args
+        cols = words.shape[0] // tile_rows * words.shape[1] * 32
+        return nbytes(words) + cols * plain.cols_dtype(tile_rows).itemsize
+    if name == "cols_counts":
+        cols, utile, gmask, n_valid = args
+        live = ((gmask & ((1 << cols.element_size() * 8) - 1)) != 0).any(dim=2)
+        return (int(live.sum()) * cols.shape[1] * cols.element_size()
+                + nbytes(utile, gmask, n_valid) + count_bytes(utile.shape[0], cols.shape[1] // 32))
+    if name == "gather_rows":
+        mat, idx = args
+        return 2 * idx.numel() * mat.shape[1] * 4 + nbytes(idx)
+    if name == "tile_xor":
+        words, tile, valid, tile_rows = args
+        out = tile.shape[0] * tile_rows * words.shape[1] * 4
+        return int(valid.sum()) * tile_rows * words.shape[1] * 4 + nbytes(tile, valid) + out
+    if name == "seq_streams":  # outs: utile, gmask, n_valid; and u_count int32[B]
+        seqs, lens, outs = args
+        return nbytes(seqs, lens, *outs) + 4 * seqs.shape[0]
+    raise ValueError(name)
+
+
+def bound_ms(nbytes_moved: int) -> float:
+    return nbytes_moved / HBM_BYTES_PER_S * 1e3
+
+
+def record(kernel_ms: dict, name: str, ms: float, plain_ms: float, moved: int,
+           library_ms: float | None = None) -> None:
+    """Keep the first timing of kernel ``name`` for the kernels line."""
+    kernel_ms.setdefault(name, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(moved),
+                                "library_ms": library_ms})
+
+
 # -- phase 1 ------------------------------------------------------------
 
 
@@ -180,14 +277,24 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """nvcc of the kernels and g++ of the port's host native library,
+    started together; both must load from this checkout's build/."""
+    from bigsi_tpu_torch import native
     from bigsi_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     source = Path(SOURCE).name
-    _build.load(source)
-    print("phase 2 build: %s ready in %.1f s"
-          % (_build.library_path(source).relative_to(ROOT), time.perf_counter() - t0),
-          flush=True)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        cuda = pool.submit(_build.load, source)
+        host = pool.submit(native.available)
+        cuda.result()
+        check(host.result(), "the port's native library built and loaded")
+    host_lib = _build.library_path(native.SOURCE, native.CXX_FLAGS)
+    check(host_lib.parent == ROOT / "build" / "bigsi_tpu_torch" and host_lib.exists(),
+          "the native library is the port's own build")
+    print("phase 2 build: %s and %s ready in %.1f s"
+          % (_build.library_path(source).relative_to(ROOT), host_lib.relative_to(ROOT),
+             time.perf_counter() - t0), flush=True)
 
 
 # -- phase 3 ------------------------------------------------------------
@@ -319,8 +426,10 @@ def phase_kernels(gen, errors: Errors) -> None:
                     utile, gmask = streams(words, b, k, tile_rows, r, pad)
                     grouped(words, cols, utile, gmask, tile_rows, "%s R=%d" % (case, r))
                 cases += 4
+            # U = 4,000 at R = 20: 80,000 live slots, past a 16-bit
+            # field counter, in 42 of kernel E's staged chunks
             for b, u, r, pad in ((5, 13, 6, 0.3), (3, 37, 20, 0.1), (4, 7, 1, 0.0),
-                                 (2, 21, 6, 1.0), (0, 16, 6, 0.0)):
+                                 (2, 21, 6, 1.0), (0, 16, 6, 0.0), (1, 4000, 20, 0.0)):
                 utile, gmask = random_grouped_inputs(gen, b, u, r, num_tiles, tile_rows, pad, dev)
                 grouped(words, cols, utile, gmask, tile_rows,
                         "W=%d tile_rows=%d B=%d U=%d R=%d pad=%.1f" % (w, tile_rows, b, u, r, pad))
@@ -335,8 +444,10 @@ def phase_kernels(gen, errors: Errors) -> None:
     print("phase 3 kernels: all five kernels bit-exact with their plain versions in %d "
           "cases (slice shapes W=%d m=%d B=%d K=512 h=%d, grouped streams of runs of ~%d "
           "k-mers at R=%d and ~%d at R=%d, D and E at tile_rows 16 and 32; ragged W 1/33, "
-          "tile_rows 8/16/32/64, R 1/6/20, U 7/13/21/37, all-padding queries, B or K of 0)"
-          % (cases, W, M, B, H, HEADLINE_RUN, HEADLINE_R, DEFAULT_RUN, DEFAULT_R), flush=True)
+          "tile_rows 8/16/32/64 (E on uint8, int16 and int32 cols), R 1/6/20, U "
+          "7/13/21/37 and 4,000 at R=20 (80,000 live slots), all-padding queries, B or K "
+          "of 0)" % (cases, W, M, B, H, HEADLINE_RUN, HEADLINE_R, DEFAULT_RUN, DEFAULT_R),
+          flush=True)
 
 
 def acgt(rng, shape) -> np.ndarray:
@@ -401,16 +512,19 @@ def seq_cases(rng):
     return cases
 
 
-def seq_checks(rng, errors: Errors) -> None:
+def seq_checks(gen, rng, errors: Errors) -> None:
     """Kernel H bit for bit against prep_streams on every case of
-    seq_cases: utile, gmask, n_valid and ok."""
+    seq_cases: utile, gmask, n_valid and ok; then kernel E against its
+    plain version on each case's streams (the overflowed ones included)
+    over random cols of the case's tiles."""
     import torch
 
     from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import lookup as plain
     from bigsi_tpu_torch.ops import prep
 
     dev = torch.device(DEVICE)
-    oks = []
+    oks, streams = [], {}
     for case, seqs, lens, kw in seq_cases(rng):
         args = (torch.from_numpy(seqs).to(dev), torch.from_numpy(lens).to(dev))
         got, want = fl.seq_streams(*args, **kw), prep.prep_streams(*args, **kw)
@@ -418,13 +532,25 @@ def seq_checks(rng, errors: Errors) -> None:
         check(bool(got[3]) == bool(want[3]), "seq_streams %s: ok %s, plain %s"
               % (case, bool(got[3]), bool(want[3])))
         oks.append(bool(want[3]))
-    torch.cuda.synchronize()
+        streams.setdefault((kw["num_tiles"], kw["tile_rows"]), []).append((case, got[:3]))
     check(not all(oks) and any(oks), "the cases include overflow and none")
+    for (num_tiles, tile_rows), items in sorted(streams.items()):
+        dtype = plain.cols_dtype(tile_rows)
+        info = torch.iinfo(dtype)
+        cols = torch.randint(info.min, info.max + 1, (num_tiles, N), generator=gen, device=dev,
+                             dtype=dtype)
+        for case, h_streams in items:
+            errors.compare("cols_counts", fl.cols_counts(cols, *h_streams),
+                           plain.grouped_counts_cols(cols, *h_streams), "H streams " + case)
+        del cols
+    torch.cuda.synchronize()
     print("phase 3 kernels: seq_streams (kernel H) bit-exact with prep_streams on utile, "
           "gmask, n_valid and ok in %d cases (%d overflow): slice B=%d L=576 at both cols "
           "configs and budgets; B=1, lens 0 / below k / k, k=32 poly-T, k=15, planted repeats "
           "190 B and 3 kb apart, a query beside its reverse complement, num_tiles 2^20 and 1, "
-          "U of 3 and 0, lb=4096 B=8, h=10" % (len(oks), oks.count(False), B), flush=True)
+          "U of 3 and 0, lb=4096 B=8, h=10; cols_counts (kernel E) bit-exact on the streams "
+          "of all %d, over random cols of each case's tiles"
+          % (len(oks), oks.count(False), B, len(oks)), flush=True)
 
 
 # -- phases 4-8 ---------------------------------------------------------
@@ -845,8 +971,9 @@ def phase_cols_times(number: int, gpu: str, name: str, port, seqs, errors: Error
                         (engine.cols, *h_streams), errors, "%s H streams" % name)
     e_native = timed_kernel("cols_counts", fl.cols_counts, plain.grouped_counts_cols,
                             (engine.cols, *native), errors, "%s native streams" % name)
-    kernel_ms.setdefault("seq_streams", h_ms)
-    kernel_ms.setdefault("cols_counts", e_ms)
+    e_bytes = bound_bytes("cols_counts", engine.cols, *h_streams)
+    record(kernel_ms, "seq_streams", *h_ms, bound_bytes("seq_streams", seqs_d, lens_d, h_streams))
+    record(kernel_ms, "cols_counts", *e_ms, e_bytes)
 
     # kernel C on H's streams over the row-major words: the same counts
     tile_rows = engine.tile_rows
@@ -857,6 +984,7 @@ def phase_cols_times(number: int, gpu: str, name: str, port, seqs, errors: Error
     check(all(torch.equal(c, e) for c, e in zip(fl.grouped_tile_counts(*c_args),
                                                   fl.cols_counts(engine.cols, *h_streams))),
           "%s: kernels C and E agree on H's streams" % name)
+    c_bytes = bound_bytes("grouped_tile_counts", *c_args)
     b, u, r = h_streams[1].shape
     print("phase %d kernels %s [%s]: H seq_streams %.4f ms vs plain PyTorch %.4f ms (B=%d "
           "L=%d U=%d R=%d, ok %s); E on H's streams %.4f ms (plain %.4f) vs on the native "
@@ -867,6 +995,16 @@ def phase_cols_times(number: int, gpu: str, name: str, port, seqs, errors: Error
              e_ms[1], e_native[0], e_native[1], native[1].shape[1], c_ms[0], c_ms[1],
              (h_ms[0] + e_ms[0]) / seq["search_batch"], json.dumps(engine._seq_cap_esc)),
           flush=True)
+    print("phase %d E vs C %s [%s]: on H's streams (B=%d U=%d R=%d) kernel E %.4f ms, bound "
+          "%.4f ms by bytes (%.1f MB: the cols rows of the %d entries with a live slot, masks, "
+          "counts), %.1f GB/s, %.3f of bound; kernel C %.4f ms, bound %.4f ms (%.1f MB), "
+          "%.1f GB/s, %.3f of bound; E / C %.3f"
+          % (number, name, gpu, b, u, r, e_ms[0], bound_ms(e_bytes), e_bytes / 1e6,
+             int(((h_streams[1] & ((1 << engine.cols.element_size() * 8) - 1)) != 0)
+                 .any(dim=2).sum()),
+             e_bytes / e_ms[0] / 1e6, bound_ms(e_bytes) / e_ms[0], c_ms[0], bound_ms(c_bytes),
+             c_bytes / 1e6, c_bytes / c_ms[0] / 1e6, bound_ms(c_bytes) / c_ms[0],
+             e_ms[0] / c_ms[0]), flush=True)
     if name != HEADLINE:
         return
 
@@ -880,7 +1018,7 @@ def phase_cols_times(number: int, gpu: str, name: str, port, seqs, errors: Error
                    (plain.pack_tile_cols(*args),), "full size")
     d_ms = cuda_ms(lambda: fl.pack_tile_cols(*args), 5, DEVICE)
     d_plain = cuda_ms(lambda: plain.pack_tile_cols(*args), 2, DEVICE)
-    kernel_ms["pack_tile_cols"] = (d_ms, d_plain)
+    record(kernel_ms, "pack_tile_cols", d_ms, d_plain, bound_bytes("pack_tile_cols", *args))
     print("phase %d times pack_tile_cols [%s]: m=%d W=%d tile_rows=%d, %.4f ms vs plain "
           "PyTorch %.4f ms (%.1f GB/s read + write)"
           % (number, gpu, M, W, tile_rows, d_ms, d_plain,
@@ -899,8 +1037,9 @@ def phase_cols_times(number: int, gpu: str, name: str, port, seqs, errors: Error
 
 
 def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
-    """-> {kernel: (ms, plain ms)}, each kernel on the first index of its
-    path (kernels H and E on minimizer/16's seq path)."""
+    """-> {kernel: {ms, plain_ms, bound_ms, library_ms}}, each kernel on
+    the first index of its path (kernels H and E on minimizer/16's seq
+    path)."""
     import torch
 
     kernel_ms = {}
@@ -912,15 +1051,17 @@ def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
         mid = median_call(calls)
         kname, kernel, reference, args, shape = host_kernel_inputs(port, seqs)
         k_ms, p_ms = timed_kernel(kname, kernel, reference, args, errors, "%s batch" % name)
-        kernel_ms.setdefault(kname, (k_ms, p_ms))
+        moved = bound_bytes(kname, *args)
+        record(kernel_ms, kname, k_ms, p_ms, moved)
         print("phase %d times %s [%s]: search_batch of %d queries, median of %d calls "
               "%.3f ms (%.1f queries/s); inside that call: k-mer extraction and padding "
               "on the host %.3f ms, engine counts_batch %.3f ms, result building %.3f ms; %s "
               "kernel %.4f ms vs plain PyTorch %.4f ms (%s, cold L2); kernel share of "
-              "search_batch %.4f"
+              "search_batch %.4f; bound %.4f ms by bytes (%.1f MB), %.3f of bound"
               % (number, name, gpu, B, len(calls), mid["search_batch"],
                  B / mid["search_batch"] * 1e3, mid["prep"], mid["counts"], mid["results"],
-                 kname, k_ms, p_ms, shape, k_ms / mid["search_batch"]),
+                 kname, k_ms, p_ms, shape, k_ms / mid["search_batch"], bound_ms(moved),
+                 moved / 1e6, bound_ms(moved) / k_ms),
               flush=True)
         print("phase %d calls %s [%s]: %s" % (number, name, gpu, json.dumps(calls)), flush=True)
     print("phase %d memory [%s]: peak %.2f GB allocated on the device"
@@ -1008,11 +1149,12 @@ def probe_checks(gen, errors: Errors, words) -> int:
 
 
 def phase_probes(number: int, gpu: str, runs, gen, errors: Errors, fns) -> tuple[dict, dict]:
-    """-> ({kernel: (ms, plain ms)} of F and G, {kernel: launches} of the
-    probes' run)."""
+    """-> ({kernel: {ms, plain_ms, bound_ms, library_ms}} of F and G,
+    {kernel: launches} of the probes' run)."""
     import torch
 
     from bigsi_tpu_torch.scripts import bisect, microbench, probe_multidma
+    from bigsi_tpu_torch.scripts.timing import cuda_ms
 
     words = runs[PROBE_INDEX][0].engine.words
     cases = probe_checks(gen, errors, words)
@@ -1028,6 +1170,11 @@ def phase_probes(number: int, gpu: str, runs, gen, errors: Errors, fns) -> tuple
     idx = torch.randint(0, view.shape[0], (65536,), generator=gen, device=words.device,
                         dtype=torch.int32)
     s2 = probe_multidma.probe(view, idx, 16, gpu)
+    # the yardstick: one PyTorch call that gathers the same rows
+    library = cuda_ms(lambda: view.index_select(0, idx), 20, DEVICE)
+    print("phase %d probes [%s]: torch index_select of the same %d rows %.4f ms (kernel F "
+          "%.4f ms)" % (number, gpu, idx.numel(), library, s2["ms"]), flush=True)
+    f_bytes = bound_bytes("gather_rows", view, idx)
     # fetch rate against row size, 128 B to 4 KB rows, each reading the
     # 50 MB of 128 B row segments kernel B reads per batch
     for wr in (32, 128, 1024):
@@ -1039,12 +1186,16 @@ def phase_probes(number: int, gpu: str, runs, gen, errors: Errors, fns) -> tuple
     # S3-S5 over the words' first T tiles
     tiles = min(bisect.T, words.shape[0] // bisect.TILE_ROWS)
     s3 = bisect.run_kernel(words, tiles, gpu)
+    tile, smask, valid = bisect.make_streams(bisect.B, bisect.KC * bisect.C, tiles, words.device)
+    g_bytes = bound_bytes("tile_xor", words, tile, valid, bisect.TILE_ROWS)
+    b_bytes = bound_bytes("tile_counts", words, tile, smask)
     s4 = bisect.run_compile(words, tiles, gpu, bisect.B)
     bisect.run_size(words, tiles, gpu)
     # S1 and every other microbench case
     ctx = microbench.Ctx(B, 512, H, DEFAULT_RUN, words.device, words=words)
+    s1 = {}
     for case in microbench.CASES.values():
-        case(ctx)
+        s1.update(case(ctx) or {})
     torch.cuda.synchronize()
     counted = {k: fn.launches for k, fn in fns.items()}
     counted_only = fns["tile_counts"].counts_only_launches
@@ -1056,7 +1207,20 @@ def phase_probes(number: int, gpu: str, runs, gen, errors: Errors, fns) -> tuple
           "tile_counts counts-only %d"
           % (number, gpu, time.perf_counter() - t0, s4["nvcc_s"], json.dumps(counted),
              counted_only), flush=True)
-    kernel_ms = {"gather_rows": (s2["ms"], s2["plain_ms"]), "tile_xor": s3["k1 tile_xor"]}
+    g, ar = ctx.pregathered()
+    every = torch.ones(ar.shape, dtype=torch.bool, device=words.device)
+    bounds = {"k1 tile_xor": g_bytes, "k2 tile_counts counts-only": b_bytes,
+              "k3 tile_counts + exact": b_bytes,
+              "pallas-work": bound_bytes("grouped_tile_counts", g, ar, ctx.gmask, microbench.TR),
+              "pallas-floor": bound_bytes("tile_xor", g, ar, every, microbench.TR)}
+    times = {**s3, **{k: s1[k] for k in ("pallas-work", "pallas-floor")}}
+    print("phase %d probe bounds [%s]: %s" % (number, gpu, "; ".join(
+        "%s %.4f ms, bound %.4f ms by bytes (%.1f MB), %.3f of bound"
+        % (k, times[k][0], bound_ms(v), v / 1e6, bound_ms(v) / times[k][0])
+        for k, v in bounds.items())), flush=True)
+    kernel_ms = {}
+    record(kernel_ms, "gather_rows", s2["ms"], s2["plain_ms"], f_bytes, library)
+    record(kernel_ms, "tile_xor", *s3["k1 tile_xor"], g_bytes)
     counted["counts_only"] = counted_only
     return kernel_ms, counted
 
@@ -1078,7 +1242,7 @@ def main() -> None:
     rng = np.random.default_rng(seed)
     errors = Errors()
     phase_kernels(gen, errors)
-    seq_checks(rng, errors)
+    seq_checks(gen, rng, errors)
 
     # the main path, one index at a time: only its launches are counted
     runs, launches = {}, dict.fromkeys(fns, 0)
@@ -1098,11 +1262,14 @@ def main() -> None:
     kernel_ms.update(probe_ms)
     for k in PROBE_KERNELS:
         launches[k] += counted[k]
-    check("jax" not in sys.modules, "jax was never imported")
+    loaded = sorted(m for m in sys.modules
+                    if m in ("bigsi_tpu", "jax") or m.startswith(("bigsi_tpu.", "jax.")))
+    check(not loaded, "neither bigsi_tpu nor jax was imported: %s" % loaded)
+    print("isolation: no module of bigsi_tpu or jax was loaded", flush=True)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors.max[name],
-         "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1]}
+         **kernel_ms[name], "bound_by": "bytes"}
         for name, replaces in KERNELS
     ]
     for k in kernels:

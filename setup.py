@@ -25,7 +25,7 @@ setup(
     python_requires=">=3.10",
     install_requires=["numpy", "jax", "pyyaml"],
     extras_require={"torch": ["torch"]},
-    package_data={"bigsi_tpu_torch": ["csrc/*.cu"]},
+    package_data={"bigsi_tpu_torch": ["csrc/*.cu", "csrc/*.cpp"]},
     entry_points={
         "console_scripts": [
             "bigsi-tpu = bigsi_tpu.__main__:main",

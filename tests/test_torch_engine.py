@@ -1,7 +1,8 @@
 """bigsi_tpu_torch.BIGSI (engine on device="cpu", so the kernels' plain
 versions) against bigsi_tpu.BIGSI on the JAX device engine (JAX on the
-CPU) and on the numpy host engine: the same index, the same queries,
-identical result dicts (tolerance zero)."""
+CPU) and on the numpy host engine: the same blooms built by each package
+into its own memory store, the same queries, identical result dicts
+(tolerance zero)."""
 
 import threading
 
@@ -11,11 +12,14 @@ import torch
 
 import bigsi_tpu
 import bigsi_tpu_torch
-from bigsi_tpu.index.host_engine import HostEngine
+from bigsi_tpu import storage as ref_storage
+from bigsi_tpu.index.host_engine import HostEngine as RefHostEngine
 from bigsi_tpu.kmers import seq_to_kmers
-from bigsi_tpu.matrix.bitmatrix import BitSliceMatrix
-from bigsi_tpu.storage import get_storage
+from bigsi_tpu.matrix.bitmatrix import BitSliceMatrix as RefMatrix
+from bigsi_tpu_torch import native, storage
 from bigsi_tpu_torch.index.device_engine import DeviceEngine
+from bigsi_tpu_torch.index.host_engine import HostEngine
+from bigsi_tpu_torch.matrix.bitmatrix import BitSliceMatrix
 
 K = 31
 N_SAMPLES = 12
@@ -32,6 +36,25 @@ def mutate(rng, seq, snps):
     return "".join(out)
 
 
+def build_both(config, kmer_lists, names):
+    """Each package blooms the same k-mers and builds its own memory
+    index (the two stores are separate); the blooms must be equal."""
+    for store in (ref_storage, storage):
+        store.get_storage(config).delete_all()
+    ref = [bigsi_tpu.BIGSI.bloom(config, kmers) for kmers in kmer_lists]
+    port = [bigsi_tpu_torch.BIGSI.bloom(config, kmers) for kmers in kmer_lists]
+    for r, p in zip(ref, port):
+        np.testing.assert_array_equal(r, p)
+    bigsi_tpu.BIGSI.build(config, ref, names)
+    bigsi_tpu_torch.BIGSI.build(config, port, names, device="cpu")
+
+
+def insert_both(config, kmers, name):
+    bigsi_tpu.BIGSI(config).insert(bigsi_tpu.BIGSI.bloom(config, kmers), name)
+    bigsi_tpu_torch.BIGSI(config, device="cpu").insert(
+        bigsi_tpu_torch.BIGSI.bloom(config, kmers), name)
+
+
 def build_index(name, layout, tile_rows=32, **extra):
     """A memory index of N_SAMPLES random genomes; -> (config, queries)
     with exact, near-miss and unrelated queries of ragged lengths."""
@@ -42,10 +65,9 @@ def build_index(name, layout, tile_rows=32, **extra):
     }
     if layout != "classic":
         config["tile-rows"] = tile_rows
-    get_storage(config).delete_all()
     genomes = [random_seq(rng, 300) for _ in range(N_SAMPLES)]
-    blooms = [bigsi_tpu.BIGSI.bloom(config, seq_to_kmers(g, K)) for g in genomes]
-    bigsi_tpu.BIGSI.build(config, blooms, ["s%d" % i for i in range(N_SAMPLES)])
+    build_both(config, [list(seq_to_kmers(g, K)) for g in genomes],
+               ["s%d" % i for i in range(N_SAMPLES)])
     queries = [
         genomes[0], genomes[1][:120], mutate(rng, genomes[2][:200], 2),
         mutate(rng, genomes[3], 6), random_seq(rng, 150), genomes[4][10:60],
@@ -94,8 +116,7 @@ def test_staged_insert_matches_host_engine():
     """A staged insert lives in the side shard on the host; the facade
     appends its columns to the engine's counts."""
     config, queries = build_index("te-insert", "minimizer")
-    bloom = bigsi_tpu.BIGSI.bloom(config, seq_to_kmers(queries[3], K))
-    bigsi_tpu.BIGSI(config).insert(bloom, "inserted")
+    insert_both(config, list(seq_to_kmers(queries[3], K)), "inserted")
     port = bigsi_tpu_torch.BIGSI(config, device="cpu")
     host = bigsi_tpu.BIGSI(config)
     assert port.side is not None
@@ -136,9 +157,8 @@ def test_screened_index_raises(tmp_path):
         "k": K, "m": 20000, "h": 3, "screen": "minimizer",
     }
     seqs = [random_seq(np.random.default_rng(i), 200) for i in range(3)]
-    bigsi_tpu.BIGSI.build(
-        config, [bigsi_tpu.BIGSI.bloom(config, seq_to_kmers(s, K)) for s in seqs],
-        ["a", "b", "c"])
+    blooms = [bigsi_tpu_torch.BIGSI.bloom(config, seq_to_kmers(s, K)) for s in seqs]
+    assert bigsi_tpu_torch.BIGSI.build(config, blooms, ["a", "b", "c"]) is None
     for engine in (None, "numpy"):
         cfg = config if engine is None else dict(config, engine=engine)
         with pytest.raises(NotImplementedError, match="screened"):
@@ -162,7 +182,9 @@ def test_engine_counts_batch_matches_host_engine():
     mask[2] = False
     got = DeviceEngine(matrix, device="cpu").counts_batch(row_idx, mask, 50)
     assert got.dtype == np.int64
-    np.testing.assert_array_equal(got, HostEngine(matrix).counts_batch(row_idx, mask, 50))
+    want = RefHostEngine(RefMatrix(words, 50)).counts_batch(row_idx, mask, 50)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(HostEngine(matrix).counts_batch(row_idx, mask, 50), want)
     with pytest.raises(IndexError):
         DeviceEngine(matrix, device="cpu").counts_batch(row_idx + 100, mask, 50)
 
@@ -255,8 +277,8 @@ def test_slot_scheme_2_takes_the_v2_native_prep(monkeypatch):
     config, queries = build_index("te-scheme2", "minimizer", 16, **{"slot-scheme": 2}, **HEADLINE)
     port = bigsi_tpu_torch.BIGSI(config, device="cpu")
     assert port.engine.slot_scheme == 2 and port.engine.supports_kmer_batch()
-    v2 = spy(monkeypatch, bigsi_tpu.native, "prep_minimizer_v2")
-    v3 = spy(monkeypatch, bigsi_tpu.native, "prep_minimizer_v3")
+    v2 = spy(monkeypatch, native, "prep_minimizer_v2")
+    v3 = spy(monkeypatch, native, "prep_minimizer_v3")
     host = bigsi_tpu.BIGSI(config)
     for threshold in (1.0, 0.7):
         assert port.search_batch(queries, threshold) == host.search_batch(queries, threshold)
@@ -269,13 +291,11 @@ def test_query_with_an_n_base_matches_host_engine():
         "storage-engine": "memory", "storage-config": {"filename": "te-nbase"},
         "k": K, "m": 65536, "h": 3, "layout": "minimizer", "tile-rows": 16,
     }
-    get_storage(config).delete_all()
     rng = np.random.default_rng(9)
     base = random_seq(rng, 150)
     seq_n = base[:60] + "N" + base[61:]
-    blooms = [bigsi_tpu.BIGSI.bloom(config, [s[i : i + K] for i in range(len(s) - K + 1)])
-              for s in (seq_n, base)]
-    bigsi_tpu.BIGSI.build(config, blooms, ["with_n", "plain"])
+    build_both(config, [[s[i : i + K] for i in range(len(s) - K + 1)] for s in (seq_n, base)],
+               ["with_n", "plain"])
     port = bigsi_tpu_torch.BIGSI(config, device="cpu")
     host = bigsi_tpu.BIGSI(config)
     query = seq_n[40:90]
@@ -327,8 +347,7 @@ def test_counts_batch_kmers_in_chunks_overlaps_the_next_prep(monkeypatch):
 
 def test_staged_insert_on_a_cols_engine_takes_counts_batch(monkeypatch):
     config, queries = build_index("te-headline-insert", "minimizer", 16, **HEADLINE)
-    bloom = bigsi_tpu.BIGSI.bloom(config, seq_to_kmers(queries[3], K))
-    bigsi_tpu.BIGSI(config).insert(bloom, "inserted")
+    insert_both(config, list(seq_to_kmers(queries[3], K)), "inserted")
     port = bigsi_tpu_torch.BIGSI(config, device="cpu")
     host = bigsi_tpu.BIGSI(config)
     assert port.side is not None and port.engine.supports_kmer_batch()
@@ -361,5 +380,6 @@ def test_minimizer_counts_batch_takes_the_grouped_kernels(monkeypatch, tile_rows
     calls = spy(monkeypatch, device_engine, kernel)
     b_calls = spy(monkeypatch, device_engine, "tile_counts")
     got = engine.counts_batch(row_idx, mask, w * 32)
-    np.testing.assert_array_equal(got, HostEngine(matrix).counts_batch(row_idx, mask, w * 32))
+    want = RefHostEngine(RefMatrix(words, w * 32)).counts_batch(row_idx, mask, w * 32)
+    np.testing.assert_array_equal(got, want)
     assert len(calls) == 1 and not b_calls

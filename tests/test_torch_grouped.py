@@ -337,6 +337,83 @@ def test_cols_counts_equal_grouped_tile_counts_on_the_same_streams():
         assert torch.equal(g, x)
 
 
+@pytest.mark.parametrize("bits", [8, 16])
+def test_field_hits_matches_the_plain_compare(bits):
+    """Kernel E's packed test of a 32-bit word against ``(x & g) == g``
+    per field: every (x, g) pair of 8-bit fields, and 2^20 random pairs
+    plus the edge values of 16-bit fields."""
+    per = 32 // bits
+    if bits == 8:
+        g = np.repeat(np.arange(256), 256)
+        x = np.tile(np.arange(256), 256)
+    else:
+        rng = np.random.default_rng(16)
+        edges = np.array([0, 1, 0x7FFF, 0x8000, 0x8001, 0xFFFE, 0xFFFF])
+        g = np.concatenate([rng.integers(0, 1 << 16, 1 << 20), np.repeat(edges, len(edges))])
+        x = np.concatenate([rng.integers(0, 1 << 16, 1 << 20), np.tile(edges, len(edges))])
+        # a sparse g, as a slot mask of h bits is: most random pairs miss
+        g[: 1 << 19] &= rng.integers(0, 1 << 16, 1 << 19) & rng.integers(0, 1 << 16, 1 << 19)
+    n = len(x) // per * per
+    x, g = x[:n].reshape(-1, per), g[:n].reshape(-1, per)
+    g[:, 1:] = g[:, :1]  # one mask, repeated in every field
+    shifts = np.arange(per) * bits
+    words = torch.from_numpy((x.astype(np.int64) << shifts).sum(axis=1))
+    rep = torch.from_numpy((g.astype(np.int64) << shifts).sum(axis=1))
+    flags = lookup.field_hits(words, rep, bits).numpy()
+    got = (flags[:, None] >> (shifts + bits - 1)) & 1
+    np.testing.assert_array_equal(got.astype(bool), (x & g) == g)
+    assert not (flags & ~np.int64(sum(1 << (s + bits - 1) for s in shifts))).any()
+
+
+def seq_arm_streams(u_cap, tile_rows=16, num_tiles=31):
+    """Kernel H's plain streams of three queries: one with a 60 bp repeat
+    (its duplicate k-mers keep a slot with mask 0), a random one and an
+    empty one; ``u_cap`` below the entries needed overflows them."""
+    from bigsi_tpu_torch.ops import prep
+
+    rng = np.random.default_rng(tile_rows + u_cap)
+    seqs = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, (3, 320))].copy()
+    seqs[0, 200:260] = seqs[0, 20:80]
+    lens = np.array([320, 300, 0], dtype=np.int32)
+    utile, gmask, n_valid, ok = prep.prep_streams(
+        torch.from_numpy(seqs), torch.from_numpy(lens), k=31, s=13, num_tiles=num_tiles, h=3,
+        tile_rows=tile_rows, r=20, u_cap=u_cap)
+    return utile, gmask, n_valid, bool(ok)
+
+
+@pytest.mark.parametrize("case", ["overflowed", "duplicates", "all-padding", "wide-masks"])
+@pytest.mark.parametrize("tile_rows", [8, 16, 32])
+def test_live_slot_counts_equal_grouped_counts_cols(case, tile_rows):
+    """Kernel E counts only the live slots: hits over them + n_valid -
+    live, bit-equal to the contract's sum over every slot minus U*R -
+    n_valid, on the streams where the two could part."""
+    rng = np.random.default_rng(tile_rows)
+    num_tiles = 31
+    cols = lookup.pack_tile_cols(as_torch(random_words(rng, num_tiles * tile_rows, 3)), tile_rows)
+    if case in ("overflowed", "duplicates"):
+        utile, gmask, n_valid, ok = seq_arm_streams(3 if case == "overflowed" else 290,
+                                                    tile_rows, num_tiles)
+        assert ok == (case == "duplicates")
+        written = int((gmask[0] != 0).sum())
+        assert written < int(n_valid[0]) if case == "overflowed" else written == int(n_valid[0])
+        if case == "duplicates":  # the repeat's 30 k-mers are not distinct
+            assert int(n_valid[0]) <= 290 - 30
+    elif case == "all-padding":
+        utile = as_torch(rng.integers(0, num_tiles, (3, 7)).astype(np.int32))
+        gmask = torch.zeros((3, 7, 5), dtype=torch.int64)
+        n_valid = torch.tensor([0, 4, 35], dtype=torch.int32)
+    else:  # bits only above the cols width are padding once cut
+        utile, gmask = grouped_inputs(rng, 3, 9, 6, num_tiles, tile_rows)
+        gmask = gm_torch(gmask)
+        utile = as_torch(utile)
+        gmask[:, ::2] = gmask[:, ::2] << 32
+        n_valid = (gmask != 0).sum(dim=(1, 2), dtype=torch.int32)
+    got = lookup.grouped_counts_cols_live(cols, utile, gmask, n_valid)
+    want = lookup.grouped_counts_cols(cols, utile, gmask, n_valid)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 # -- the wrappers' checks -------------------------------------------------------
 
 

@@ -1,8 +1,9 @@
 """The seq serving arm of bigsi_tpu_torch (search_batch ->
 DeviceEngine.counts_batch_seqs -> kernel H's plain version -> kernel E's,
 engine on device="cpu") against the JAX package's seq arm (``engine:
-tpu``, JAX on the CPU) and the numpy host engine: the same index and
-queries, identical result dicts and fall-backs (tolerance zero).  The
+tpu``, JAX on the CPU) and the numpy host engine: the same blooms built
+by each package into its own memory store, the same queries, identical
+result dicts and fall-backs (tolerance zero).  The
 cases of tests/test_seq_batch_device.py and tests/test_long_queries.py,
 on the port."""
 
@@ -17,9 +18,10 @@ import torch
 
 import bigsi_tpu
 import bigsi_tpu_torch
+from bigsi_tpu import storage as ref_storage
 from bigsi_tpu.index import device_engine as jax_engine
 from bigsi_tpu.kmers import seq_to_kmers
-from bigsi_tpu.storage import get_storage
+from bigsi_tpu_torch import storage
 from bigsi_tpu_torch.http.server import make_server
 from bigsi_tpu_torch.index import device_engine
 from bigsi_tpu_torch.index.device_engine import DeviceEngine
@@ -45,10 +47,14 @@ def make_index(name, n=6, glen=600, layout="minimizer", **extra):
         "k": K, "m": 1 << 18, "h": 3, "layout": layout,
         **(CONFIGS["minimizer16"] if layout == "minimizer" else {}), **extra,
     }
-    get_storage(config).delete_all()
     genomes = [random_seq(rng, glen) for _ in range(n)]
-    blooms = [bigsi_tpu.BIGSI.bloom(config, seq_to_kmers(g, K)) for g in genomes]
-    bigsi_tpu.BIGSI.build(config, blooms, ["s%d" % i for i in range(n)])
+    names = ["s%d" % i for i in range(n)]
+    for store in (ref_storage, storage):
+        store.get_storage(config).delete_all()
+    bigsi_tpu.BIGSI.build(config, [bigsi_tpu.BIGSI.bloom(config, seq_to_kmers(g, K))
+                                   for g in genomes], names)
+    bigsi_tpu_torch.BIGSI.build(config, [bigsi_tpu_torch.BIGSI.bloom(config, seq_to_kmers(g, K))
+                                         for g in genomes], names, device="cpu")
     return config, genomes, rng
 
 
@@ -155,8 +161,10 @@ def test_seq_path_overflow_falls_back(monkeypatch):
 
 def test_staged_insert_keeps_the_host_paths(monkeypatch):
     config, genomes, _ = make_index("insert")
-    bloom = bigsi_tpu.BIGSI.bloom(config, seq_to_kmers(genomes[2][::-1], K))
-    bigsi_tpu.BIGSI(config).insert(bloom, "inserted")
+    kmers = list(seq_to_kmers(genomes[2][::-1], K))
+    bigsi_tpu.BIGSI(config).insert(bigsi_tpu.BIGSI.bloom(config, kmers), "inserted")
+    bigsi_tpu_torch.BIGSI(config, device="cpu").insert(
+        bigsi_tpu_torch.BIGSI.bloom(config, kmers), "inserted")
     port, _, host = port_and_refs(config)
     assert port.side is not None and port.engine.supports_seq_batch()
     seq_calls = spy(monkeypatch, DeviceEngine, "counts_batch_seqs")

@@ -1,5 +1,6 @@
 """The port's slice end to end on the CPU: the CLI in a process that
-never loads jax, and the HTTP server against bigsi_tpu's."""
+never loads jax or bigsi_tpu, and the HTTP server against bigsi_tpu's,
+both on an index that bigsi_tpu wrote to disk."""
 
 import json
 import os
@@ -18,7 +19,6 @@ from bigsi_tpu.__main__ import make_parser
 from bigsi_tpu.__main__ import run as host_run
 from bigsi_tpu.http.server import make_server as host_make_server
 from bigsi_tpu.kmers import seq_to_kmers
-from bigsi_tpu.storage import get_storage
 from bigsi_tpu_torch.http.server import make_server
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -26,7 +26,8 @@ K = 31
 
 # runs in a fresh interpreter, so tests/conftest.py (which imports jax)
 # is never loaded: the port's CLI, with its engine on the CPU (the
-# minimizer index's bulk_search takes the seq arm, kernel H's plain version)
+# minimizer index's bulk_search takes the seq arm, kernel H's plain
+# version); neither jax nor bigsi_tpu may load
 CLI_SCRIPT = """
 import json, sys
 from bigsi_tpu_torch.ops import prep
@@ -34,7 +35,9 @@ from bigsi_tpu_torch.__main__ import make_parser, run
 real, preps = prep.prep_streams, []
 prep.prep_streams = lambda *a, **kw: preps.append(1) or real(*a, **kw)
 out = [run(make_parser().parse_args(argv), device="cpu") for argv in json.loads(sys.argv[1])]
-print(json.dumps({"outputs": out, "jax_loaded": "jax" in sys.modules, "seq_preps": len(preps)}))
+ref = [m for m in sys.modules if m == "bigsi_tpu" or m.startswith("bigsi_tpu.")]
+print(json.dumps({"outputs": out, "jax_loaded": "jax" in sys.modules, "ref_loaded": ref,
+                  "seq_preps": len(preps)}))
 """
 
 
@@ -77,7 +80,7 @@ def test_cli_search_and_bulk_search_without_jax(tmp_path, layout):
     )
     assert proc.returncode == 0, proc.stderr
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert got["jax_loaded"] is False
+    assert got["jax_loaded"] is False and got["ref_loaded"] == []
     assert got["seq_preps"] == (2 if layout == "minimizer" else 0)  # the two bulk_searches
     want = [host_run(make_parser().parse_args(argv)) for argv in argvs]
     assert got["outputs"] == want
@@ -97,15 +100,14 @@ def _post(url, body):
 
 
 @pytest.mark.parametrize("layout", ["classic", "minimizer"])
-def test_http_search_matches_jax_package_server(layout):
+def test_http_search_matches_jax_package_server(tmp_path, layout):
     rng = np.random.default_rng(12)
     config = {
-        "storage-engine": "memory", "storage-config": {"filename": "ts-http-" + layout},
+        "storage-engine": "bigsi-tpu", "storage-config": {"filename": str(tmp_path / "idx")},
         "k": K, "m": 10000, "h": 3, "layout": layout,
     }
     if layout == "minimizer":
         config["tile-rows"] = 32
-    get_storage(config).delete_all()
     genomes = build(config, rng)
     servers = [
         make_server(config, host="127.0.0.1", port=0, device="cpu"),

@@ -1,7 +1,8 @@
-"""bigsi_tpu_torch.synth: a small index drawn on the CPU reopens with the
-layout's own parameters, its planted columns are the planted blooms, and
-the port (device="cpu") answers on it exactly as bigsi_tpu's host engine
-does.  Also the facade's per-layer timers of one search_batch."""
+"""bigsi_tpu_torch.synth: a small index drawn on the CPU into a directory
+reopens in bigsi_tpu with the layout's own parameters, its planted
+columns are bigsi_tpu's blooms of the planted sequences, and the port
+(device="cpu") answers on it exactly as bigsi_tpu's host engine does.
+Also the facade's per-layer timers of one search_batch."""
 
 import numpy as np
 import pytest
@@ -21,10 +22,10 @@ def random_seq(rng, n):
     return "".join(np.array(list("ACGT"))[rng.integers(0, 4, n)])
 
 
-def make(layout, tile_rows=32):
+def make(tmp_path, layout, tile_rows=32):
     rng = np.random.default_rng(7)
     config = {
-        "storage-engine": "memory", "storage-config": {"filename": "ts-" + layout},
+        "storage-engine": "bigsi-tpu", "storage-config": {"filename": str(tmp_path / layout)},
         "k": K, "m": 4096, "h": 3, "layout": layout,
     }
     if layout != "classic":
@@ -38,8 +39,8 @@ def make(layout, tile_rows=32):
 
 @pytest.mark.parametrize("layout,tile_rows", [("classic", 32), ("minimizer", 32),
                                               ("minimizer", 64)])
-def test_synth_index_serves_like_the_host_engine(layout, tile_rows):
-    config, planted = make(layout, tile_rows)
+def test_synth_index_serves_like_the_host_engine(tmp_path, layout, tile_rows):
+    config, planted = make(tmp_path, layout, tile_rows)
     host = bigsi_tpu.BIGSI(config)
     assert host.num_samples == N_SAMPLES
     assert (host.layout, host.bloomfilter_size) == (layout, 4096)
@@ -67,10 +68,10 @@ def test_synth_index_serves_like_the_host_engine(layout, tile_rows):
         assert "p%d" % i in {r["sample_name"] for r in got[i]}
 
 
-def test_search_batch_times_each_layer():
+def test_search_batch_times_each_layer(tmp_path):
     """The facade times the engine's counts and, in the port, result
     building: both inside one search_batch, each once."""
-    config, planted = make("classic")
+    config, planted = make(tmp_path, "classic")
     port = bigsi_tpu_torch.BIGSI(config, device="cpu")
     bigsi_tpu_torch.metrics.reset()
     port.search_batch([p[:100] for p in planted], 0.7)
