@@ -25,12 +25,13 @@
 //   contract covers ops/lookup.py:grouped_counts.  The k-mers come in
 //   grouped streams: entry u of a query is one tile id and R slot masks,
 //   one per k-mer of a run that shares the tile (mask 0 = padding slot).
-//   As in P2/P3, each entry's tile is read from device memory once for
-//   all R slots: a warp loads the rows that any slot selects (the union
-//   of the masks) into its own shared-memory buffer, lane l keeping
-//   column l, and every slot ANDs its rows from there.  The TPU kernels'
-//   W == 32 limit, U % 16 == 0, twisted lanes and carry-save planes
-//   served the TPU's vector unit and do not carry over.
+//   P2/P3 read each entry's tile once for all R slots; here every slot
+//   reads its own rows and the rows its entry's other slots share come
+//   from L1 (a second kernel that copies each entry's rows once into
+//   shared memory measured slower; below).  The TPU kernels' W == 32
+//   limit, U % 16 == 0 and twisted lanes served the TPU's vector unit
+//   and do not carry over; their carry-save planes return here as B's
+//   and C's counters (below).
 // * tile_counts_only is kernel B built without the exact AND and its
 //   write (template kExact = false): the counts-only stage k2 of the
 //   bisection probe scripts/bisect_kernel.py:49 (S3).
@@ -41,18 +42,42 @@
 //
 // What bounds kernels A, B and C on an H100: gathered bytes, at random rows.  At
 // m = 2.5e7 and W = 32 the matrix is 3.2 GB, far beyond the 50 MB L2, so
-// each k-mer costs h HBM reads of one 128-byte row segment, and the work
-// per row (an AND and 32 counter adds per lane) is small beside the
-// latency of the read.  The design keeps many reads in flight: one
-// block per (query, 32-word chunk), 16 warps that split the query's
-// k-mers into contiguous runs, lane l owning word 32 * chunk + l with 32
-// per-bit counters in registers, and the reads of kUnroll k-mers issued
-// before any is consumed.  Row ids (or tiles and masks) are staged in
-// shared memory first, so no read waits on an index load.  The warps'
+// each k-mer costs h HBM reads of one 128-byte row segment; kernel F
+// reads such rows at 1.0-1.1 TB/s, a third of the card's 3.35 TB/s.  All
+// three take one block per (query, 32-word chunk) whose warps split the
+// query's k-mers (or entries) into contiguous runs, lane l owning word
+// 32 * chunk + l.  Row ids (or tiles and masks) are staged in shared
+// memory first, so no read waits on an index load, and the warps'
 // counters meet in shared memory at the end and leave in one coalesced
-// write.  The TPU kernel's run-deduplicated DMA streams, twisted count
-// order, bank-alternated slots and W == 32 limit served the TPU's DMA
-// issue rate and scalar memory; here L1 and L2 serve a repeated tile.
+// write.  Kernel A: 16 warps, 32 per-bit counters in registers, the
+// reads of kUnroll k-mers issued before any is consumed.  Kernels B and
+// C, redesigned for Hopper, run on one kernel (slot_counts_kernel: C's
+// entries are R slots of one tile, B's k-mers slots of their own), 8
+// warps a block, so two blocks share an SM and B = 256 queries fill the
+// card in one wave:
+//   - Bit-plane counters (Planes, below) in place of per-bit adds, which
+//     cost 64 instructions a k-mer and 32 registers.  A lane keeps its 32
+//     samples' counts as vertical counters, plane d holding bit d of all
+//     32.  Eight presence words enter at once through a Harley-Seal tree
+//     of carry-save adders (two LOP3 each), whose carry of eights
+//     ripples into the upper planes only as deep as a count can reach so
+//     far: about 5 logic ops a word.  The planes are unpacked into 32
+//     counts only when they flush into the block's shared counters,
+//     before any count could pass 2^16 - 1 and at the end.
+//   - Live slots only.  Staging drops padding (mask 0), which adds
+//     nothing to counts and all ones to exact: at R = 6 about half of
+//     C's slots.
+//   - Reads in flight while counting: the reads of the next 8 slots'
+//     rows are issued into registers before the current 8 are counted,
+//     a row that several slots of an entry select coming again from L1.
+//     No shared memory holds rows: C's per-warp [tile_rows][32] buffers
+//     (128 KB a block) are gone, and a block stages only its slots.  A
+//     per-warp cp.async ring of each entry's selected rows, compacted,
+//     was measured slower for both B and C on an H100 80GB HBM3
+//     (PERF.md, section 6).
+// The TPU kernel's run-deduplicated DMA streams, twisted count order,
+// bank-alternated slots and W == 32 limit served the TPU's DMA issue
+// rate and scalar memory; here L1 and L2 serve a repeated tile.
 //
 // Offsets into the matrix are size_t: row * W * 4 reaches 3.2e9 bytes.
 
@@ -75,30 +100,18 @@ struct Acc {
   unsigned exact;
 };
 
-template <bool kExact = true>
 __device__ __forceinline__ void add_kmer(Acc& acc, unsigned p) {
 #pragma unroll
   for (int j = 0; j < 32; ++j) acc.cnt[j] += (p >> j) & 1u;
-  if (kExact) acc.exact &= p;
+  acc.exact &= p;
 }
 
-// Sums the block's accumulators and writes query b's slice of counts
-// (32 counters per word, sample order) and, with kExact, exact for this
-// chunk.
+// Writes query b's slice of counts from the block's counters s_cnt (32
+// per word, sample order) and, with kExact, exact for this chunk.
 template <bool kExact = true>
-__device__ void write_out(const Acc& acc, int b, int chunk, int W,
-                          int32_t* __restrict__ counts,
-                          int32_t* __restrict__ exact) {
-  __shared__ int s_cnt[32 * kStride];
-  __shared__ unsigned s_exact[32];
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < 32 * kStride; i += blockDim.x) s_cnt[i] = 0;
-  if (kExact && threadIdx.x < 32) s_exact[threadIdx.x] = kAllOnes;
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < 32; ++j) atomicAdd(&s_cnt[lane * kStride + j], acc.cnt[j]);
-  if (kExact) atomicAnd(&s_exact[lane], acc.exact);
-  __syncthreads();
+__device__ __forceinline__ void store_counts(const int* s_cnt, const unsigned* s_exact, int b,
+                                             int chunk, int W, int32_t* __restrict__ counts,
+                                             int32_t* __restrict__ exact) {
   const int nw = min(32, W - chunk * 32);
   const size_t word0 = static_cast<size_t>(b) * W + static_cast<size_t>(chunk) * 32;
   int32_t* out = counts + word0 * 32;
@@ -110,10 +123,29 @@ __device__ void write_out(const Acc& acc, int b, int chunk, int W,
   }
 }
 
+// Sums the block's accumulators and writes query b's slice of counts
+// and exact.
+__device__ void write_out(const Acc& acc, int b, int chunk, int W,
+                          int32_t* __restrict__ counts,
+                          int32_t* __restrict__ exact) {
+  __shared__ int s_cnt[32 * kStride];
+  __shared__ unsigned s_exact[32];
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < 32 * kStride; i += blockDim.x) s_cnt[i] = 0;
+  if (threadIdx.x < 32) s_exact[threadIdx.x] = kAllOnes;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 32; ++j) atomicAdd(&s_cnt[lane * kStride + j], acc.cnt[j]);
+  atomicAnd(&s_exact[lane], acc.exact);
+  __syncthreads();
+  store_counts(s_cnt, s_exact, b, chunk, W, counts, exact);
+}
+
 // The contiguous run [lo, hi) of a staged chunk of n k-mers that this
-// warp consumes.
+// warp of a block of kNumWarps consumes.
+template <int kNumWarps = kWarps>
 __device__ __forceinline__ void warp_run(int n, int& lo, int& hi) {
-  const int per = (n + kWarps - 1) / kWarps;
+  const int per = (n + kNumWarps - 1) / kNumWarps;
   lo = min(n, (static_cast<int>(threadIdx.x) >> 5) * per);
   hi = min(n, lo + per);
 }
@@ -167,77 +199,141 @@ classic_counts_kernel(const unsigned* __restrict__ words, int W,
   write_out(acc, b, chunk, W, counts, exact);
 }
 
-// kExact = false is the counts-only build: exact is not written (and
-// may be null).
-template <bool kExact>
-__global__ void __launch_bounds__(kThreads)
-tile_counts_kernel(const unsigned* __restrict__ words, int W,
-                   const int32_t* __restrict__ tile,
-                   const int64_t* __restrict__ smask, int K, int tile_rows,
-                   int kc, int32_t* __restrict__ counts,
-                   int32_t* __restrict__ exact) {
-  extern __shared__ unsigned long long s_mask[];  // [kc] masks, then [kc] tiles
-  int32_t* s_tile = reinterpret_cast<int32_t*>(s_mask + kc);
-  const unsigned long long rows_mask =
-      tile_rows >= 64 ? ~0ull : (1ull << tile_rows) - 1ull;
-  const int b = blockIdx.x;
-  const int chunk = blockIdx.y;
-  const int w = chunk * 32 + (threadIdx.x & 31);
-  const bool live = w < W;
-  const int32_t* q_tile = tile + static_cast<size_t>(b) * K;
-  const int64_t* q_mask = smask + static_cast<size_t>(b) * K;
-  Acc acc = {};
-  acc.exact = kAllOnes;
-  for (int k0 = 0; k0 < K; k0 += kc) {
-    const int n = min(kc, K - k0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      s_mask[i] = static_cast<unsigned long long>(q_mask[k0 + i]);
-      s_tile[i] = q_tile[k0 + i];
-    }
-    __syncthreads();
-    int lo, hi;
-    warp_run(n, lo, hi);
-    for (int i = lo; i < hi; i += kUnroll) {
-      unsigned p[kUnroll];
-      bool ok[kUnroll];
+// -- kernels B and C: bit-plane counters over a slot stream ---------------
+//
+// A slot is a tile id and a 64-bit mask whose set bits s select the
+// tile's rows s (bits at or past tile_rows select nothing; mask 0 is
+// padding).  Kernel B's k-mers are slots, one to a tile; kernel C's entry
+// is one tile and R slots.  So both run on slot_counts_kernel, which
+// takes per query T tiles of R slots (B: T = K, R = 1).  A warp walks its
+// run of slots kBGroup at a time and issues the reads of the next group's
+// rows (the first kBRows of each slot; any further rows are read when the
+// slot is counted) before it counts the current group.  A row that
+// several slots of an entry select is read again, from L1.
+
+constexpr size_t kStageBytes = 32 * 1024;  // shared memory for staged k-mers or slots
+
+constexpr int kPlanes = 16;                    // count bits a lane keeps per sample
+constexpr int kPlaneMax = (1 << kPlanes) - 1;  // the largest count the planes hold
+
+// Carry-save adder, bitwise: hi * 2 + lo = a + b + c.
+__device__ __forceinline__ void csa(unsigned& hi, unsigned& lo, unsigned a, unsigned b,
+                                    unsigned c) {
+  const unsigned u = a ^ b;
+  hi = (a & b) | (u & c);
+  lo = u ^ c;
+}
+
+// One lane's 32 per-sample counts as bit planes: bit j of p[d] is bit d of
+// sample j's count.  `since`, the same on every lane of a warp, counts the
+// words added since the last flush and so bounds every count: the planes
+// past its bit length are zero, and no add or unpack touches them.
+struct Planes {
+  unsigned p[kPlanes];
+  int since;
+
+  __device__ __forceinline__ void init() {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int e = i + u;
-        const unsigned long long sm = e < hi ? s_mask[e] : 0ull;
-        ok[u] = sm != 0ull;
-        p[u] = kAllOnes;
-        if (ok[u] && live) {
-          const size_t base = static_cast<size_t>(s_tile[e]) * tile_rows;
-          for (unsigned long long sel = sm & rows_mask; sel != 0ull; sel &= sel - 1ull) {
-            const int s = __ffsll(static_cast<long long>(sel)) - 1;
-            p[u] &= __ldg(words + (base + s) * W + w);
-          }
-        }
+    for (int d = 0; d < kPlanes; ++d) p[d] = 0u;
+    since = 0;
+  }
+
+  // Adds the counts into the block's counters s_cnt_lane[0, 32) and
+  // clears the planes.
+  __device__ __forceinline__ void flush(int* s_cnt_lane) {
+    const int depth = 32 - __clz(since);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      int c = 0;
+#pragma unroll
+      for (int d = 0; d < kPlanes; ++d) {
+        if (d >= depth) break;
+        c |= static_cast<int>((p[d] >> j) & 1u) << d;
       }
+      if (c != 0) atomicAdd(&s_cnt_lane[j], c);
+    }
+    init();
+  }
+
+  // Adds eight presence words (0 adds nothing): a Harley-Seal tree into
+  // planes 0-2, then its carry of eights into planes 3 and up, as deep as
+  // the counts can reach.  Flushes first when a count could pass
+  // kPlaneMax.
+  __device__ __forceinline__ void add8(const unsigned (&c)[8], int* s_cnt_lane) {
+    if (since > kPlaneMax - 8) flush(s_cnt_lane);
+    unsigned t1, t2, f1, f2, e;
+    csa(t1, p[0], p[0], c[0], c[1]);
+    csa(t2, p[0], p[0], c[2], c[3]);
+    csa(f1, p[1], p[1], t1, t2);
+    csa(t1, p[0], p[0], c[4], c[5]);
+    csa(t2, p[0], p[0], c[6], c[7]);
+    csa(f2, p[1], p[1], t1, t2);
+    csa(e, p[2], p[2], f1, f2);
+    since += 8;
+    const int depth = 32 - __clz(since);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (ok[u]) add_kmer<kExact>(acc, p[u]);
+    for (int d = 3; d < kPlanes; ++d) {
+      if (d >= depth) break;
+      const unsigned t = p[d] & e;
+      p[d] ^= e;
+      e = t;
+    }
+  }
+};
+
+// -- the slot stream in registers -----------------------------------------
+
+constexpr int kBWarps = 8;
+constexpr int kBThreads = 32 * kBWarps;
+constexpr int kBGroup = 8;  // k-mers counted together, one Planes::add8
+constexpr int kBRows = 4;   // rows of a k-mer read ahead; any further rows (a mask
+                            // of more than 4 bits) are read when it is counted
+
+// Issues the reads of the first kBRows rows that each k-mer of [e0, e0 +
+// kBGroup) selects, cut to the warp's run [., hi), into v (all ones where
+// a k-mer has no such row).  col points at this lane's word of row 0.
+__device__ __forceinline__ void rows_ahead(unsigned (&v)[kBGroup][kBRows],
+                                           const unsigned long long* s_mask,
+                                           const int32_t* s_tile, int e0, int hi,
+                                           unsigned long long rows_mask,
+                                           const unsigned* col, int W, int tile_rows,
+                                           bool live) {
+#pragma unroll
+  for (int u = 0; u < kBGroup; ++u) {
+    const int e = e0 + u;
+    unsigned long long sel = e < hi ? s_mask[e] & rows_mask : 0ull;
+    const size_t base = e < hi ? static_cast<size_t>(s_tile[e]) * tile_rows : 0;
+#pragma unroll
+    for (int i = 0; i < kBRows; ++i) {
+      v[u][i] = kAllOnes;
+      if (sel != 0ull) {
+        const size_t s = __ffsll(static_cast<long long>(sel)) - 1;
+        sel &= sel - 1ull;
+        if (live) v[u][i] = __ldg(col + (base + s) * W);
       }
     }
   }
-  write_out<kExact>(acc, b, chunk, W, counts, exact);
 }
 
-constexpr int kRowBatch = 8;  // row reads of one entry issued together
-
-// Dynamic shared memory: [kc] tile ids, [kc * R] slot masks, then per
-// warp a [tile_rows][32] buffer of the current entry's selected rows.
-__global__ void __launch_bounds__(kThreads)
-grouped_tile_counts_kernel(const unsigned* __restrict__ words, int W,
-                           const int32_t* __restrict__ utile,
-                           const int64_t* __restrict__ gmask, int U, int R,
-                           int tile_rows, int kc, int32_t* __restrict__ counts,
-                           int32_t* __restrict__ exact) {
-  extern __shared__ unsigned long long s_gmask[];  // [kc * R]
-  int32_t* s_tile = reinterpret_cast<int32_t*>(s_gmask + static_cast<size_t>(kc) * R);
-  unsigned* s_rows = reinterpret_cast<unsigned*>(s_tile + kc) +
-                     (threadIdx.x >> 5) * tile_rows * 32;
+// Slot i of query b has tile tile[b, i / R] and mask mask[b, i], for i
+// below T * R.  Only live slots (mask != 0) are staged, in warp-sized
+// runs of stream order: padding adds nothing to counts and all ones to
+// exact, so dropping it changes neither, and the warps split the live
+// slots evenly.  kExact = false is the counts-only build: exact is not
+// written (and may be null).  Dynamic shared memory: [kc] masks, then
+// [kc] tiles, one per staged slot.
+template <bool kExact>
+__global__ void __launch_bounds__(kBThreads)
+slot_counts_kernel(const unsigned* __restrict__ words, int W,
+                   const int32_t* __restrict__ tile,
+                   const int64_t* __restrict__ mask, int T, int R, int tile_rows,
+                   int kc, int32_t* __restrict__ counts,
+                   int32_t* __restrict__ exact) {
+  extern __shared__ unsigned long long s_mask[];
+  int32_t* s_tile = reinterpret_cast<int32_t*>(s_mask + kc);
+  __shared__ int s_cnt[32 * kStride];
+  __shared__ unsigned s_exact[32];
+  __shared__ int s_staged;
   const unsigned long long rows_mask =
       tile_rows >= 64 ? ~0ull : (1ull << tile_rows) - 1ull;
   const int b = blockIdx.x;
@@ -245,61 +341,98 @@ grouped_tile_counts_kernel(const unsigned* __restrict__ words, int W,
   const int lane = threadIdx.x & 31;
   const int w = chunk * 32 + lane;
   const bool live = w < W;
-  const int32_t* q_tile = utile + static_cast<size_t>(b) * U;
-  const int64_t* q_mask = gmask + static_cast<size_t>(b) * U * R;
-  Acc acc = {};
-  acc.exact = kAllOnes;
-  for (int u0 = 0; u0 < U; u0 += kc) {
-    const int n = min(kc, U - u0);
+  const unsigned* col = words + w;
+  int* cnt = s_cnt + lane * kStride;
+  const int K = T * R;
+  const int32_t* q_tile = tile + static_cast<size_t>(b) * T;
+  const int64_t* q_mask = mask + static_cast<size_t>(b) * K;
+  for (int i = threadIdx.x; i < 32 * kStride; i += blockDim.x) s_cnt[i] = 0;
+  if (threadIdx.x < 32) s_exact[threadIdx.x] = kAllOnes;
+  __syncthreads();
+  Planes acc;
+  acc.init();
+  unsigned ex = kAllOnes;
+  for (int k0 = 0; k0 < K; k0 += kc) {
+    const int n = min(kc, K - k0);
     __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < n * R; i += blockDim.x) {
-      s_gmask[i] = static_cast<unsigned long long>(q_mask[static_cast<size_t>(u0) * R + i]);
+    if (threadIdx.x == 0) s_staged = 0;
+    __syncthreads();
+    for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+      const int i = i0 + threadIdx.x;
+      const unsigned long long m = i < n ? static_cast<unsigned long long>(q_mask[k0 + i]) : 0ull;
+      const unsigned keep = __ballot_sync(kAllOnes, m != 0ull);
+      int at = 0;
+      if (lane == 0 && keep != 0u) at = atomicAdd(&s_staged, __popc(keep));
+      at = __shfl_sync(kAllOnes, at, 0) + __popc(keep & ((1u << lane) - 1u));
+      if (m != 0ull) {
+        s_mask[at] = m;
+        s_tile[at] = q_tile[R == 1 ? k0 + i : (k0 + i) / R];
+      }
     }
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s_tile[i] = q_tile[u0 + i];
     __syncthreads();
     int lo, hi;
-    warp_run(n, lo, hi);
-    for (int e = lo; e < hi; ++e) {
-      const unsigned long long* g = s_gmask + static_cast<size_t>(e) * R;
-      unsigned long long need = 0ull;
-      for (int j = 0; j < R; ++j) need |= g[j];
-      need &= rows_mask;
-      // each selected row once, kRowBatch reads in flight; a lane
-      // writes and later reads only its own column, so no sync
-      const size_t base = static_cast<size_t>(s_tile[e]) * tile_rows;
-      while (need != 0ull) {
-        int s[kRowBatch];
-        unsigned v[kRowBatch];
+    warp_run<kBWarps>(s_staged, lo, hi);
+    unsigned v[kBGroup][kBRows];
+    if (lo < hi) rows_ahead(v, s_mask, s_tile, lo, hi, rows_mask, col, W, tile_rows, live);
+    for (int e0 = lo; e0 < hi; e0 += kBGroup) {
+      unsigned c[kBGroup];
 #pragma unroll
-        for (int q = 0; q < kRowBatch; ++q) {
-          s[q] = -1;
-          v[q] = 0u;
-          if (need != 0ull) {
-            s[q] = __ffsll(static_cast<long long>(need)) - 1;
-            need &= need - 1ull;
-            if (live) v[q] = __ldg(words + (base + s[q]) * W + w);
+      for (int u = 0; u < kBGroup; ++u) {
+        c[u] = v[u][0];
+#pragma unroll
+        for (int i = 1; i < kBRows; ++i) c[u] &= v[u][i];
+      }
+      // the next group's reads are in flight while this one is counted
+      if (e0 + kBGroup < hi) {
+        rows_ahead(v, s_mask, s_tile, e0 + kBGroup, hi, rows_mask, col, W, tile_rows, live);
+      }
+#pragma unroll
+      for (int u = 0; u < kBGroup; ++u) {
+        const int e = e0 + u;
+        const unsigned long long sm = e < hi ? s_mask[e] : 0ull;
+        unsigned long long rest = sm & rows_mask;
+        if (__popcll(rest) > kBRows) {
+          for (int i = 0; i < kBRows; ++i) rest &= rest - 1ull;
+          const size_t base = static_cast<size_t>(s_tile[e]) * tile_rows;
+          for (; rest != 0ull; rest &= rest - 1ull) {
+            const size_t s = __ffsll(static_cast<long long>(rest)) - 1;
+            if (live) c[u] &= __ldg(col + (base + s) * W);
           }
         }
-#pragma unroll
-        for (int q = 0; q < kRowBatch; ++q) {
-          if (s[q] >= 0) s_rows[s[q] * 32 + lane] = v[q];
-        }
+        if (kExact) ex &= c[u];
+        if (sm == 0ull) c[u] = 0u;  // a padding k-mer counts nothing
       }
-      for (int j = 0; j < R; ++j) {
-        const unsigned long long sm = g[j];
-        if (sm == 0ull) continue;  // padding slot
-        unsigned p = kAllOnes;
-        for (unsigned long long sel = sm & rows_mask; sel != 0ull; sel &= sel - 1ull) {
-          p &= s_rows[(__ffsll(static_cast<long long>(sel)) - 1) * 32 + lane];
-        }
-        add_kmer(acc, p);
-      }
+      acc.add8(c, cnt);
     }
   }
-  write_out(acc, b, chunk, W, counts, exact);
+  acc.flush(cnt);
+  if (kExact) atomicAnd(&s_exact[lane], ex);
+  __syncthreads();
+  store_counts<kExact>(s_cnt, s_exact, b, chunk, W, counts, exact);
 }
 
-constexpr size_t kStageBytes = 32 * 1024;  // shared memory for staged k-mers
+// B or C: T tiles of R slots per query.
+template <bool kExact>
+int launch_counts(const void* words, int W, const void* tile, const void* mask, int B, int T,
+                  int R, int tile_rows, void* counts, void* exact, cudaStream_t stream) {
+  if (B <= 0 || W <= 0 || T < 0 || R < 0 || tile_rows < 1 || tile_rows > 64 ||
+      static_cast<int64_t>(T) * R > 0x7FFFFFFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(B, (W + 31) / 32);
+  const auto* w = static_cast<const unsigned*>(words);
+  const auto* t = static_cast<const int32_t*>(tile);
+  const auto* m = static_cast<const int64_t*>(mask);
+  auto* c = static_cast<int32_t*>(counts);
+  auto* e = static_cast<int32_t*>(exact);
+  const size_t per_slot = sizeof(unsigned long long) + sizeof(int32_t);
+  const int kc = static_cast<int>(std::max<int64_t>(
+      1, std::min<int64_t>(static_cast<int64_t>(T) * R, kStageBytes / per_slot)));
+  slot_counts_kernel<kExact><<<grid, kBThreads, kc * per_slot, stream>>>(
+      w, W, t, m, T, R, tile_rows, kc, c, e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 
 // -- the cols layout: kernels D and E ------------------------------------
 //
@@ -702,23 +835,6 @@ int launch_cols_counts(const void* cols, int W, const void* utile, const void* g
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kExact>
-int launch_tile_counts(const void* words, int W, const void* tile, const void* smask, int B,
-                       int K, int tile_rows, void* counts, void* exact, cudaStream_t stream) {
-  if (B <= 0 || W <= 0 || K < 0 || tile_rows < 1 || tile_rows > 64) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t per_kmer = sizeof(unsigned long long) + sizeof(int32_t);
-  const int kc = static_cast<int>(std::max<size_t>(1, std::min<size_t>(K, kStageBytes / per_kmer)));
-  const size_t smem = static_cast<size_t>(kc) * per_kmer;
-  const dim3 grid(B, (W + 31) / 32);
-  tile_counts_kernel<kExact><<<grid, kThreads, smem, stream>>>(
-      static_cast<const unsigned*>(words), W, static_cast<const int32_t*>(tile),
-      static_cast<const int64_t*>(smask), K, tile_rows, kc,
-      static_cast<int32_t*>(counts), static_cast<int32_t*>(exact));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // -- the probes' kernels: F and G ----------------------------------------
 //
 // * gather_rows (kernel F) replaces the Pallas kernel of
@@ -1115,15 +1231,15 @@ int classic_counts(const void* words, int W, const void* row_idx,
 int tile_counts(const void* words, int W, const void* tile, const void* smask,
                 int B, int K, int tile_rows, void* counts, void* exact,
                 void* stream) {
-  return launch_tile_counts<true>(words, W, tile, smask, B, K, tile_rows, counts, exact,
-                                  static_cast<cudaStream_t>(stream));
+  return launch_counts<true>(words, W, tile, smask, B, K, 1, tile_rows, counts, exact,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // tile_counts without the exact AND: counts only.
 int tile_counts_only(const void* words, int W, const void* tile, const void* smask,
                      int B, int K, int tile_rows, void* counts, void* stream) {
-  return launch_tile_counts<false>(words, W, tile, smask, B, K, tile_rows, counts, nullptr,
-                                   static_cast<cudaStream_t>(stream));
+  return launch_counts<false>(words, W, tile, smask, B, K, 1, tile_rows, counts, nullptr,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // mat uint32[m, Wr], idx int32[n], every id in [0, m); out uint32[n, Wr].
@@ -1167,24 +1283,8 @@ int tile_xor(const void* words, int W, const void* tile, const void* valid, int 
 int grouped_tile_counts(const void* words, int W, const void* utile,
                         const void* gmask, int B, int U, int R, int tile_rows,
                         void* counts, void* exact, void* stream) {
-  if (B <= 0 || W <= 0 || U < 0 || R < 0 || tile_rows < 1 || tile_rows > 64) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t per_entry = sizeof(int32_t) + static_cast<size_t>(R) * sizeof(unsigned long long);
-  if (per_entry > kStageBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const int kc = static_cast<int>(std::max<size_t>(1, std::min<size_t>(U, kStageBytes / per_entry)));
-  const size_t smem = static_cast<size_t>(kc) * per_entry +
-                      static_cast<size_t>(kWarps) * tile_rows * 32 * sizeof(unsigned);
-  cudaError_t err = cudaFuncSetAttribute(
-      grouped_tile_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B, (W + 31) / 32);
-  grouped_tile_counts_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(words), W, static_cast<const int32_t*>(utile),
-      static_cast<const int64_t*>(gmask), U, R, tile_rows, kc,
-      static_cast<int32_t*>(counts), static_cast<int32_t*>(exact));
-  return static_cast<int>(cudaGetLastError());
+  return launch_counts<true>(words, W, utile, gmask, B, U, R, tile_rows, counts, exact,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // words uint32[num_tiles * tile_rows, W]; cols [num_tiles, W * 32] of

@@ -200,7 +200,6 @@ class KmerSignatureIndex:
         self._engine_factory = engine_factory or HostEngine
         self.screen = None  # dict of screen params when verified
         self.screen_matrix = None
-        self.screen_engine = None
         try:
             screen_m = storage.kv.get_integer(SCREEN_M_KEY)
         except KeyError:
@@ -214,21 +213,31 @@ class KmerSignatureIndex:
                 "run_len": storage.kv.get_integer(SCREEN_RUN_LEN_KEY),
             }
             self.screen_matrix = storage.load_screen()
-            # the configured engine accelerates the SCREEN; the classic
-            # matrix is verified host-side from rows.bin (never staged
-            # to HBM — candidate-word verification reads a sliver of it)
-            self.screen_engine = _make_engine(
-                self._engine_factory, self.screen_matrix, "minimizer",
-                self.screen["tile_rows"], self.screen["window"],
-                self.screen["slot_scheme"], self.screen["run_len"],
-            )
-            self.engine = HostEngine(self.bitmatrix)
-        else:
+        self._rebuild_engines()
+
+    def _rebuild_engines(self) -> None:
+        """Engines over the current matrices; called wherever a matrix
+        changes.  A device engine copies its matrix once, at
+        construction, so it must be rebuilt to see a change.  The old
+        engines are dropped first: two device copies of the index are
+        never alive at once."""
+        self.engine = self.screen_engine = None
+        if self.screen is None:
             self.engine = _make_engine(
                 self._engine_factory, self.bitmatrix, self.layout,
                 self.tile_rows, self.minimizer_window, self.slot_scheme,
                 self.run_len,
             )
+            return
+        # the configured engine accelerates the SCREEN; the classic
+        # matrix is verified host-side from rows.bin (never staged to
+        # HBM — candidate-word verification reads a sliver of it)
+        self.screen_engine = _make_engine(
+            self._engine_factory, self.screen_matrix, "minimizer",
+            self.screen["tile_rows"], self.screen["window"],
+            self.screen["slot_scheme"], self.screen["run_len"],
+        )
+        self.engine = HostEngine(self.bitmatrix)
 
     @classmethod
     def create(
@@ -420,28 +429,24 @@ class KmerSignatureIndex:
         self.bitmatrix.ensure_writable()
         self.bitmatrix.insert_column(np.asarray(bits, dtype=bool), column_index)
         self.storage.save_matrix(self.bitmatrix)
+        self._rebuild_engines()
 
     def compact(self) -> None:
         """Fold staged side columns into the main matrix + engine."""
+        if self._fold_side():
+            self._rebuild_engines()
+
+    def _fold_side(self) -> bool:
+        """Fold staged side columns into the main matrices, leaving the
+        engines to the caller; -> whether there were any."""
         if self.side is None:
-            return
+            return False
         self.storage.compact_side()
         self.side = None
         self.bitmatrix = self.storage.load_matrix()
         if self.screen is not None:
             self.screen_matrix = self.storage.load_screen()
-            self.screen_engine = _make_engine(
-                self._engine_factory, self.screen_matrix, "minimizer",
-                self.screen["tile_rows"], self.screen["window"],
-                self.screen["slot_scheme"], self.screen["run_len"],
-            )
-            self.engine = HostEngine(self.bitmatrix)
-            return
-        self.engine = _make_engine(
-            self._engine_factory, self.bitmatrix, self.layout,
-            self.tile_rows, self.minimizer_window, self.slot_scheme,
-            self.run_len,
-        )
+        return True
 
     def side_presence(self, row_idx: np.ndarray) -> np.ndarray | None:
         """Per-kmer presence over STAGED columns: [K, h] -> bool [K, C]
@@ -451,8 +456,6 @@ class KmerSignatureIndex:
         return self.side.presence(row_idx)
 
     def merge_indexes(self, ksi: "KmerSignatureIndex") -> None:
-        self.compact()
-        ksi.compact()
         if (self.screen is None) != (ksi.screen is None):
             raise ValueError(
                 "cannot merge a verified (screened) index with an "
@@ -463,6 +466,8 @@ class KmerSignatureIndex:
                 "screen parameters differ: %r vs %r"
                 % (self.screen, ksi.screen)
             )
+        self._fold_side()  # the engines are rebuilt once, after the merge
+        ksi.compact()
         self.bitmatrix.merge(ksi.bitmatrix)
         self.storage.save_matrix(self.bitmatrix)
         if self.screen is not None:
@@ -472,8 +477,4 @@ class KmerSignatureIndex:
             # merge() widened sm but num_cols tracks the main matrix
             self.storage.save_screen(sm)
             self.screen_matrix = self.storage.load_screen()
-            self.screen_engine = _make_engine(
-                self._engine_factory, self.screen_matrix, "minimizer",
-                self.screen["tile_rows"], self.screen["window"],
-                self.screen["slot_scheme"], self.screen["run_len"],
-            )
+        self._rebuild_engines()

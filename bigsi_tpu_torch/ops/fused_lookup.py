@@ -26,6 +26,8 @@
   of ``scripts/microbench.py:233`` (S1).
 * ``tile_counts(..., exact=False)`` launches kernel B's counts-only
   build, the k2 stage of ``scripts/bisect_kernel.py:49`` (S3).
+* Kernels B and C both run on ``slot_counts_kernel`` (see
+  ``csrc/lookup.cu``).
 * :func:`seq_streams` is kernel H.  It replaces the XLA program
   ``bigsi_tpu/ops/prep_jax.py:prep_streams_device``, the seq serving
   arm's prep from query bytes to the grouped streams kernel E counts.

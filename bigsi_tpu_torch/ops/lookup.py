@@ -9,7 +9,8 @@ re-stated here because that module imports jax, and the plain versions
 of the probes' kernels (``gather_rows``, ``tile_xor``, and
 ``blocked_counts`` without exact); ``field_hits`` and
 ``grouped_counts_cols_live`` restate kernel E's own arithmetic (its
-packed field test and its live-slot counts).  They are the
+packed field test and its live-slot counts), and ``plane_counts`` the
+bit-plane counter of kernels B and C.  They are the
 reference of the CUDA kernels in :mod:`bigsi_tpu_torch.ops.fused_lookup`:
 the kernels' wrappers run them for tensors on the CPU, the CPU tests
 hold them against the JAX functions, and ``chip_smoke.py`` holds the
@@ -20,9 +21,7 @@ has no complete uint32 arithmetic): bit ``n % 32`` of ``words[r, n //
 32]`` is sample ``n`` of row ``r``.  Single bits are read as ``(x >> j)
 & 1``, which is right on int32 although ``>>`` is arithmetic there.
 Slot masks are int64, so tile_rows 64 keeps rows 32-63.  Padding k-mers
-add nothing to counts and all ones to the exact AND.  The carry-save
-popcount tree of the JAX package is not ported: it works around the
-TPU's vector unit.
+add nothing to counts and all ones to the exact AND.
 """
 
 from __future__ import annotations
@@ -313,6 +312,64 @@ def field_hits(x: torch.Tensor, g: torch.Tensor, bits: int) -> torch.Tensor:
     low = FIELD_LOW[bits]
     d = ~x & g & 0xFFFFFFFF
     return ~(((d & low) + low) | d) & (low ^ 0xFFFFFFFF)
+
+
+PLANES = 16  # count bits per sample in kernels B's and C's counters
+U32 = 0xFFFFFFFF
+
+
+def csa(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """Carry-save adder on u32 words held in int64: -> (hi, lo) with ``hi
+    * 2 + lo == a + b + c`` at every bit."""
+    u = a ^ b
+    return (a & b) | (u & c), u ^ c
+
+
+def unpack_planes(planes) -> torch.Tensor:
+    """Bit planes [int64[...] holding u32] -> int64[..., 32]: count j is
+    the sum over d of bit j of plane d, times 2**d."""
+    shifts = torch.arange(32, dtype=torch.int64)
+    out = 0
+    for d, plane in enumerate(planes):
+        out = out + (((plane[..., None] >> shifts.to(plane.device)) & 1) << d)
+    return out
+
+
+def plane_counts(words: torch.Tensor, planes: int = PLANES) -> torch.Tensor:
+    """Kernels B's and C's bit-plane counter, plain: presence words
+    int64[n, ...] holding u32 (0 adds nothing) -> int64[..., 32], per bit
+    j the number of words with bit j set.  As a lane of the kernels
+    counts: words enter eight at a time (the last eight padded with
+    zeros) through a Harley-Seal tree of carry-save adders into planes
+    0-2; its carry of eights ripples into planes 3 and up, only as deep
+    as the bit length of ``since``, the words added since the last
+    flush, which bounds every count; the planes flush into the counts
+    before a count could pass ``2**planes - 1``, and at the end.  Fewer
+    ``planes`` than the kernels' 16 make the flush testable at small n."""
+    if planes < 4:
+        raise ValueError("the counter needs at least 4 planes, got %d" % planes)
+    w = words.long() & U32
+    rest = w.shape[1:]
+    w = torch.cat([w, w.new_zeros((-w.shape[0] % 8, *rest))])
+    p = [w.new_zeros(rest) for _ in range(planes)]
+    counts = w.new_zeros((*rest, 32))
+    since, limit = 0, (1 << planes) - 1
+    for g in range(0, w.shape[0], 8):
+        if since > limit - 8:
+            counts += unpack_planes(p[: since.bit_length()])
+            p, since = [w.new_zeros(rest) for _ in range(planes)], 0
+        c = w[g : g + 8]
+        t1, p[0] = csa(p[0], c[0], c[1])
+        t2, p[0] = csa(p[0], c[2], c[3])
+        f1, p[1] = csa(p[1], t1, t2)
+        t1, p[0] = csa(p[0], c[4], c[5])
+        t2, p[0] = csa(p[0], c[6], c[7])
+        f2, p[1] = csa(p[1], t1, t2)
+        e, p[2] = csa(p[2], f1, f2)
+        since += 8
+        for d in range(3, since.bit_length()):
+            p[d], e = p[d] ^ e, p[d] & e
+    return counts + unpack_planes(p[: since.bit_length()])
 
 
 def _in_flags(rows: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,9 @@ Subcommands:
                   The TPU script's NPREF (Mosaic's scalar-prefetch count)
                   and GRID1D (its grid shape) have no counterpart in a
                   CUDA kernel, which loads its own indices and computes
-                  its own offsets, and are dropped.
+                  its own offsets, and are dropped.  With --ptxas, a
+                  second nvcc build with -Xptxas -v first prints each
+                  kernel's registers, shared memory and spills.
   size [B ...]    k1 and k3 over a sweep of B (default 64 128 256 512
                   1024), with the time per query.
 
@@ -36,6 +38,7 @@ clock at a size set by ``--tiles``.
 Usage:
   python -m bigsi_tpu_torch.scripts.bisect kernel
   python -m bigsi_tpu_torch.scripts.bisect compile 256 64
+  python -m bigsi_tpu_torch.scripts.bisect compile --ptxas 256
   python -m bigsi_tpu_torch.scripts.bisect size 64 128 256
   python -m bigsi_tpu_torch.scripts.bisect --device cpu --tiles 512 kernel
 """
@@ -43,6 +46,9 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import re
+import shutil
+import subprocess
 import time
 
 import numpy as np
@@ -120,6 +126,43 @@ def nvcc_seconds() -> float:
     return time.perf_counter() - t0
 
 
+def parse_ptxas(report: str) -> dict[str, str]:
+    """-> {entry function: "Used ... registers, ...; N bytes stack frame,
+    N bytes spill stores, N bytes spill loads"} from ptxas -v's report."""
+    out, entry, frame = {}, None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, frame = m.group(1), ""
+        elif "spill stores" in line:
+            frame = line.strip()
+        elif entry and "Used" in line:
+            out[entry] = "%s; %s" % (line.split(":", 1)[1].strip(), frame)
+            entry = None
+    return out
+
+
+def ptxas_report() -> dict[str, str]:
+    """nvcc -Xptxas -v of csrc/lookup.cu with the library's own flags,
+    into a scratch library that is then deleted; -> parse_ptxas of the
+    report, with names demangled where c++filt is on PATH."""
+    out = _build.BUILD_DIR / "ptxas" / _build.library_path(SOURCE).name
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+           str(_build.CSRC / SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc -Xptxas -v failed (exit %d):\n%s" % (proc.returncode, proc.stderr))
+    out.unlink()
+    report = parse_ptxas(proc.stderr)
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(report), capture_output=True,
+                               text=True).stdout.splitlines()
+        if len(names) == len(report):
+            report = dict(zip(names, report.values()))
+    return report
+
+
 def host_call_ms(fn, device) -> float:
     """Host-clock ms of one call, synchronised."""
     t0 = time.perf_counter()
@@ -128,13 +171,20 @@ def host_call_ms(fn, device) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def run_compile(words, tiles: int, label: str, b: int, c: int = C, reps: int = 20) -> dict:
+def run_compile(words, tiles: int, label: str, b: int, c: int = C, reps: int = 20,
+                ptxas: bool = False) -> dict:
     """nvcc's build time, then each stage's first call beside its steady
-    time; -> {"nvcc_s": s, stage: (first ms, steady host ms, device ms)}."""
+    time; -> {"nvcc_s": s, stage: (first ms, steady host ms, device ms)},
+    with ``ptxas`` also {"ptxas": ptxas_report()}, taken first."""
     dev = words.device
     if dev.type != "cuda":
         raise SystemExit("bisect compile needs a CUDA device (it times nvcc and module loads)")
-    out = {"nvcc_s": nvcc_seconds()}
+    out = {}
+    if ptxas:
+        out["ptxas"] = ptxas_report()
+        for name, used in out["ptxas"].items():
+            print("ptxas %s: %s" % (name, used), flush=True)
+    out["nvcc_s"] = nvcc_seconds()
     print("nvcc build of csrc/%s: %.2f s [%s]" % (SOURCE, out["nvcc_s"], label), flush=True)
     tile, smask, valid = make_streams(b, KC * c, tiles, dev)
     for name, kernel, _ in stages(words, tile, smask, valid):
@@ -173,6 +223,8 @@ def main(argv=None) -> dict:
     p = sub.add_parser("compile", help="nvcc time, first call vs steady")
     p.add_argument("b", type=int)
     p.add_argument("c", type=int, nargs="?", default=C)
+    p.add_argument("--ptxas", action="store_true",
+                   help="first print each kernel's registers, shared memory and spills")
     p = sub.add_parser("size", help="k1 and k3 over a sweep of B")
     p.add_argument("b", type=int, nargs="*", default=list(SIZES))
     args = ap.parse_args(argv)
@@ -182,7 +234,7 @@ def main(argv=None) -> dict:
     if args.command == "kernel":
         return run_kernel(words, args.tiles, label, reps=args.reps)
     if args.command == "compile":
-        return run_compile(words, args.tiles, label, args.b, args.c, args.reps)
+        return run_compile(words, args.tiles, label, args.b, args.c, args.reps, args.ptxas)
     return run_size(words, args.tiles, label, args.b, reps=args.reps)
 
 

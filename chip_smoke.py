@@ -15,7 +15,7 @@ k-mers each), the shape of bench.py.  Phases:
    bit for bit with their plain PyTorch versions, at the slice's shapes
    (the full-size matrix, B = 256, K = 512, grouped streams of runs of
    tiles as the minimizer layout makes them, D and E at tile_rows 16
-   and 32) and at ragged ones (W 1 and 33, tile_rows 8 to 64, so E on
+   and 32) and at ragged ones (W 1, 33 and 64, tile_rows 8 to 64, so E on
    uint8, int16 and int32 cols, R 1, 6 and 20, U not a multiple of 16
    or of E's ring of 16, U = 4,000 at R = 20 (past a 16-bit field
    counter, many staged chunks), empty and all-padding queries, B or K
@@ -27,7 +27,12 @@ k-mers each), the shape of bench.py.  Phases:
    repeats, a query beside its reverse complement, num_tiles 2^20 and
    1, budgets that overflow, 4,096 bytes at B = 8, h = 10), and kernel
    E agrees with its plain version on every one of those streams,
-   overflowed ones included, over random cols of the case's tiles;
+   overflowed ones included, over random cols of the case's tiles; B's
+   and C's bit-plane counters are driven past 2^16 on all-ones words
+   (B's counts of 4,096 in both builds, C's of 80,000) and by masks of
+   rows 32-63 alone; and a mutation check: small blocked/32 and
+   minimizer/64 indexes on the card, merged and then overwritten in one
+   colour, give the host engine's results on a rebuilt engine;
 4.-8. five indexes, each an in-memory index of random rows at the bit
    density of scripts/synth_index.py, drawn on the card, with 4 planted
    samples: classic (kernel A), blocked at tile_rows 32 (kernel B),
@@ -325,28 +330,29 @@ class Errors:
                   % (name, case, err))
 
 
-def random_tile_inputs(gen, b, k, num_tiles, tile_rows, pad_frac, dev, mean_run=2):
+def random_tile_inputs(gen, b, k, num_tiles, tile_rows, pad_frac, dev, mean_run=2, low_row=0):
     """Tile ids in runs of about ``mean_run`` k-mers (as the minimizer
-    layout makes them) and 64-bit slot masks of H random rows; a
-    fraction of k-mers are padding (mask 0)."""
+    layout makes them) and 64-bit slot masks of H random rows in
+    [low_row, tile_rows); a fraction of k-mers are padding (mask 0)."""
     import torch
 
     run_id = (torch.rand((b, k), generator=gen, device=dev) < 1.0 / mean_run).long().cumsum(1)
     per_run = torch.randint(0, num_tiles, (b, k + 1), generator=gen, device=dev, dtype=torch.int32)
     tile = per_run.gather(1, run_id).contiguous()
-    slots = torch.randint(0, tile_rows, (b, k, H), generator=gen, device=dev)
+    slots = torch.randint(low_row, tile_rows, (b, k, H), generator=gen, device=dev)
     smask = (torch.ones_like(slots) << slots)
     smask = smask[..., 0] | smask[..., 1] | smask[..., 2]
     pad = torch.rand((b, k), generator=gen, device=dev) < pad_frac
     return tile, torch.where(pad, 0, smask).contiguous()
 
 
-def random_grouped_inputs(gen, b, u, r, num_tiles, tile_rows, pad_frac, dev):
+def random_grouped_inputs(gen, b, u, r, num_tiles, tile_rows, pad_frac, dev, low_row=0):
     """Grouped streams drawn directly: any U, padding slots (mask 0)."""
     import torch
 
     utile = torch.randint(0, num_tiles, (b, u), generator=gen, device=dev, dtype=torch.int32)
-    _, gmask = random_tile_inputs(gen, b, u * r, num_tiles, tile_rows, pad_frac, dev)
+    _, gmask = random_tile_inputs(gen, b, u * r, num_tiles, tile_rows, pad_frac, dev,
+                                  low_row=low_row)
     return utile, gmask.view(b, u, r).contiguous()
 
 
@@ -366,21 +372,28 @@ def phase_kernels(gen, errors: Errors) -> None:
         errors.compare("classic_counts", fl.classic_counts(words, idx, mask),
                        plain.batched_counts(words, idx, mask), case)
 
-    def tiled(words, b, k, tile_rows, pad_frac, case):
+    def tiled(words, b, k, tile_rows, pad_frac, case, low_row=0, both=False):
+        """Kernel B; with ``both`` its counts-only build too."""
         tile, smask = random_tile_inputs(
-            gen, b, k, words.shape[0] // tile_rows, tile_rows, pad_frac, dev)
-        errors.compare("tile_counts", fl.tile_counts(words, tile, smask, tile_rows),
-                       plain.blocked_counts(words, tile, smask, tile_rows), case)
+            gen, b, k, words.shape[0] // tile_rows, tile_rows, pad_frac, dev, low_row=low_row)
+        want = plain.blocked_counts(words, tile, smask, tile_rows)
+        got = fl.tile_counts(words, tile, smask, tile_rows)
+        errors.compare("tile_counts", got, want, case)
+        if both:
+            only = fl.tile_counts(words, tile, smask, tile_rows, False)
+            errors.compare("tile_counts", only[:1], want[:1], "counts-only " + case)
+        return got
 
     def grouped(words, cols, utile, gmask, tile_rows, case):
-        """Kernel C on the row-major words and, with cols, kernel E."""
-        errors.compare("grouped_tile_counts",
-                       fl.grouped_tile_counts(words, utile, gmask, tile_rows),
-                       plain.grouped_counts(words, utile, gmask, tile_rows), case)
+        """Kernel C over the row-major words and, with cols, kernel E."""
+        want = plain.grouped_counts(words, utile, gmask, tile_rows)
+        got = fl.grouped_tile_counts(words, utile, gmask, tile_rows)
+        errors.compare("grouped_tile_counts", got, want, case)
         if cols is not None:
             n_valid = (gmask != 0).sum(dim=(1, 2), dtype=torch.int32)
             errors.compare("cols_counts", fl.cols_counts(cols, utile, gmask, n_valid),
                            plain.grouped_counts_cols(cols, utile, gmask, n_valid), case)
+        return got
 
     def streams(words, b, k, tile_rows, r, pad_frac, mean_run=HEADLINE_RUN):
         tile, smask = random_tile_inputs(
@@ -406,8 +419,33 @@ def phase_kernels(gen, errors: Errors) -> None:
         del cols
         cases += 2
     del words
+    # counts past 2^16 that carry into every plane of B's and C's
+    # counters: all-ones words, so every count is the valid k-mers or
+    # slots; then masks that select only rows 32-63 of 64-row tiles
+    for w in (33, 64):
+        ones = torch.full((64 * 3001, w), -1, dtype=torch.int32, device=dev)
+        for tile_rows in (32, 64):
+            counts, exact = tiled(ones, 2, 4096, tile_rows, 0.0, "all ones W=%d tile_rows=%d "
+                                  "K=4096" % (w, tile_rows), both=True)
+            check(bool((counts == 4096).all()) and bool((exact == -1).all()),
+                  "kernel B counts every one of 4,096 k-mers")
+            utile, gmask = random_grouped_inputs(gen, 1, 4000, 20, 3001 * 64 // tile_rows,
+                                                 tile_rows, 0.0, dev)
+            counts, _ = grouped(ones, None, utile, gmask, tile_rows,
+                                "all ones W=%d tile_rows=%d U=4000 R=20" % (w, tile_rows))
+            check(bool((counts == 80_000).all()), "kernel C counts every one of 80,000 slots")
+            cases += 3
+        words = torch.randint(-2**31, 2**31, (64 * 3001, w), generator=gen, device=dev,
+                              dtype=torch.int32)
+        case = "rows 32-63 W=%d tile_rows=64" % w
+        tiled(words, 5, 700, 64, 0.2, case, low_row=32, both=True)
+        for r in (6, 20):
+            utile, gmask = random_grouped_inputs(gen, 3, 50, r, 3001, 64, 0.2, dev, low_row=32)
+            grouped(words, None, utile, gmask, 64, "%s U=50 R=%d" % (case, r))
+        cases += 4
+        del ones, words
     # ragged shapes
-    for w in (1, 33):
+    for w in (1, 33, 64):
         for tile_rows in (8, 16, 32, 64):
             words = torch.randint(-2**31, 2**31, (tile_rows * 3001, w),
                                   generator=gen, device=dev, dtype=torch.int32)
@@ -443,11 +481,12 @@ def phase_kernels(gen, errors: Errors) -> None:
     torch.cuda.synchronize()
     print("phase 3 kernels: all five kernels bit-exact with their plain versions in %d "
           "cases (slice shapes W=%d m=%d B=%d K=512 h=%d, grouped streams of runs of ~%d "
-          "k-mers at R=%d and ~%d at R=%d, D and E at tile_rows 16 and 32; ragged W 1/33, "
-          "tile_rows 8/16/32/64 (E on uint8, int16 and int32 cols), R 1/6/20, U "
-          "7/13/21/37 and 4,000 at R=20 (80,000 live slots), all-padding queries, B or K "
-          "of 0)" % (cases, W, M, B, H, HEADLINE_RUN, HEADLINE_R, DEFAULT_RUN, DEFAULT_R),
-          flush=True)
+          "k-mers at R=%d and ~%d at R=%d, D and E at tile_rows 16 and 32; all-ones words "
+          "at W 33/64 with B's counts of 4,096 (both builds) and C's of 80,000 (U=4,000 "
+          "R=20), masks of rows 32-63 only; ragged W 1/33/64, tile_rows 8/16/32/64 (E on "
+          "uint8, int16 and int32 cols), R 1/6/20, U 7/13/21/37 and 4,000 at R=20 (80,000 "
+          "live slots), all-padding queries, B or K of 0)"
+          % (cases, W, M, B, H, HEADLINE_RUN, HEADLINE_R, DEFAULT_RUN, DEFAULT_R), flush=True)
 
 
 def acgt(rng, shape) -> np.ndarray:
@@ -551,6 +590,79 @@ def seq_checks(gen, rng, errors: Errors) -> None:
           "U of 3 and 0, lb=4096 B=8, h=10; cols_counts (kernel E) bit-exact on the streams "
           "of all %d, over random cols of each case's tiles"
           % (len(oks), oks.count(False), B, len(oks)), flush=True)
+
+
+MUTATION_M = 1 << 20  # bloom bits of the mutation check's small indexes
+MUTATION_INDEXES = ("blocked/32", "minimizer/64")
+
+
+def phase_mutation(rng) -> None:
+    """The engine follows an in-process merge and an interior insert: on
+    small indexes of blocked/32 (kernel B) and minimizer/64 (kernel C),
+    8 samples merged with 4 more, then colour 2 overwritten by a new
+    sample's bloom; after each, the port's engine is a new one, its
+    search and search_batch results equal the numpy host engine's opened
+    on the store afterwards, and each index launched its own kernel and
+    no other."""
+    from bigsi_tpu_torch import BIGSI
+    from bigsi_tpu_torch.kmers import seq_to_kmers
+    from bigsi_tpu_torch.storage import get_storage
+
+    fns = kernel_fns()
+    compared = 0
+    for name in MUTATION_INDEXES:
+        configs = [{"storage-engine": "memory",
+                    "storage-config": {"filename": "chip-smoke-mutation-%d-%s"
+                                       % (i, name.replace("/", "-"))},
+                    "k": K_LEN, "m": MUTATION_M, "h": H, **INDEXES[name][0]} for i in range(2)]
+        for config in configs:
+            get_storage(config).delete_all()
+        genomes = [random_seq(rng, 1000) for _ in range(12)]
+        names = ["s%d" % i for i in range(12)]
+
+        def bloom(seq):
+            return BIGSI.bloom(configs[0], seq_to_kmers(seq, K_LEN))
+
+        def same(what, queries):
+            nonlocal compared
+            host = BIGSI(dict(configs[0], engine="numpy"))
+            for t in (1.0, 0.7):
+                check(port.search_batch(queries, t) == host.search_batch(queries, t)
+                      and all(port.search(q, t) == host.search(q, t) for q in queries[:4]),
+                      "%s after %s: results equal the host engine's at %.1f" % (name, what, t))
+                compared += len(queries) + 4
+
+        for fn in fns.values():
+            fn.launches = 0
+        port = BIGSI.build(configs[0], [bloom(g) for g in genomes[:8]], names[:8], device=DEVICE)
+        other = BIGSI.build(configs[1], [bloom(g) for g in genomes[8:]], names[8:], device=DEVICE)
+        before = port.engine
+        port.merge(other)
+        check(port.engine is not before and port.num_samples == 12,
+              "%s: merge rebuilt the engine over 12 samples" % name)
+        queries = [g[:400] for g in genomes] + [mutate(rng, g[100:600], 5) for g in genomes]
+        same("merge", queries)
+        check({r["sample_name"] for r in port.search(genomes[10][:400], 1.0)} >= {"s10"},
+              "%s: a merged sample is found" % name)
+        new = random_seq(rng, 1000)
+        before = port.engine
+        port.insert_bloom(bloom(new), 2)
+        check(port.side is None and port.engine is not before,
+              "%s: the interior insert rebuilt the engine" % name)
+        same("an interior insert", [new[:400], mutate(rng, new[:500], 5)] + queries)
+        check("s2" in {r["sample_name"] for r in port.search(new[:400], 1.0)},
+              "%s: the inserted sample is found under colour 2" % name)
+        counted = {k: fn.launches for k, fn in fns.items()}
+        own = INDEXES[name][1]
+        check(all(counted[k] > 0 for k in own) and
+              not any(n for k, n in counted.items() if k not in own),
+              "%s mutation launched its kernels %s and no other: %s" % (name, own, counted))
+        del port, other, before
+        for config in configs:
+            get_storage(config).delete_all()
+    print("phase 3 mutation: merge and interior insert on %s at m=%d rebuilt the engine; %d "
+          "result lists equal the host engine's" % (", ".join(MUTATION_INDEXES), MUTATION_M,
+                                                    compared), flush=True)
 
 
 # -- phases 4-8 ---------------------------------------------------------
@@ -1243,6 +1355,7 @@ def main() -> None:
     errors = Errors()
     phase_kernels(gen, errors)
     seq_checks(gen, rng, errors)
+    phase_mutation(rng)
 
     # the main path, one index at a time: only its launches are counted
     runs, launches = {}, dict.fromkeys(fns, 0)

@@ -237,3 +237,66 @@ def test_wrappers_check_their_arguments():
                                  torch.ones((1, 4), dtype=torch.int64), 48)
     with pytest.raises(ValueError):
         fused_lookup.classic_counts(words.to("meta"), idx.to("meta"), mask.to("meta"))
+
+
+# -- kernels B's and C's bit-plane counter ----------------------------------
+
+
+def per_bit_sums(words: np.ndarray) -> np.ndarray:
+    """u32 words [n, ...] -> int64 [..., 32], per bit the words that set it."""
+    bits = (words.astype(np.uint64)[..., None] >> np.arange(32, dtype=np.uint64)) & np.uint64(1)
+    return bits.sum(axis=0).astype(np.int64)
+
+
+@pytest.mark.parametrize("n,planes", [(0, 16), (1, 16), (7, 16), (8, 16), (9, 16), (333, 16),
+                                      (100, 4), (1000, 5), (257, 8)])
+def test_plane_counts_match_per_bit_sums(n, planes):
+    """Random words, one ragged group of eight at the end; at 4-8 planes
+    the flush runs many times."""
+    rng = np.random.default_rng(n * 31 + planes)
+    words = rng.integers(0, 2**32, size=(n, 3), dtype=np.uint32)
+    got = lookup.plane_counts(torch.from_numpy(words.astype(np.int64)), planes)
+    np.testing.assert_array_equal(got.numpy(), per_bit_sums(words))
+
+
+@pytest.mark.parametrize("planes", [4, 5, 6, 8, 16])
+def test_plane_counts_carry_into_every_plane(planes):
+    """All-ones words: every count reaches 2**planes - 1, so the carry of
+    eights ripples into the top plane, then one group more forces the
+    flush; counts just past each power of two, sparse words and zero
+    (padding) words between them."""
+    top = (1 << planes) - 1
+    ns = {8, 15, 16, 17, top - 8, top - 1, top, top + 1, top + 9, 2 * top + 3}
+    if planes == 16:  # the kernels' depth: one run past the flush keeps it quick
+        ns = {17, top + 9}
+    for n in sorted(ns):
+        ones = np.full((n, 1), 0xFFFFFFFF, dtype=np.int64)
+        got = lookup.plane_counts(torch.from_numpy(ones), planes)
+        assert got.tolist() == [[n] * 32], (planes, n)
+    rng = np.random.default_rng(planes)
+    n = min(3 * top, 2000)
+    words = np.where(rng.random((n, 2)) < 0.7, 0, rng.integers(0, 2**32, (n, 2)))
+    words[::5] = 0xFFFFFFFF
+    got = lookup.plane_counts(torch.from_numpy(words.astype(np.int64)), planes)
+    np.testing.assert_array_equal(got.numpy(), per_bit_sums(words.astype(np.uint32)))
+
+
+def test_plane_counts_need_four_planes():
+    with pytest.raises(ValueError):
+        lookup.plane_counts(torch.zeros((8, 1), dtype=torch.int64), 3)
+
+
+@pytest.mark.parametrize("w,tile_rows", [(1, 64), (3, 32)])
+def test_plane_counts_give_blocked_counts(w, tile_rows):
+    """Kernel B's counts are the planes of its presence words, padding
+    k-mers entering as 0."""
+    rng = np.random.default_rng(w)
+    words = as_torch(random_words(rng, 40 * tile_rows, w))
+    tile, slots, valid = tile_inputs(rng, 40, tile_rows, 2, 77)
+    smask = torch.from_numpy(slot_mask(slots, valid, np.uint64).view(np.int64))
+    counts, _ = lookup.blocked_counts(words, torch.from_numpy(tile), smask, tile_rows)
+    for q in range(2):
+        packed = lookup.blocked_presence(words, torch.from_numpy(tile[q]), smask[q], tile_rows)
+        presence = torch.where(smask[q, :, None] != 0, packed.long() & lookup.U32, 0)
+        got = lookup.plane_counts(presence).flatten()
+        np.testing.assert_array_equal(got.numpy(), counts[q].numpy())

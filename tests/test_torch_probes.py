@@ -334,3 +334,27 @@ def test_bisect_compile_refuses_the_cpu(tmp_path):
     proc = run_entry_point(["bigsi_tpu_torch.scripts.bisect", "--device", "cpu", "--tiles", "64",
                             "compile", "4"], tmp_path)
     assert proc.returncode != 0 and "needs a CUDA device" in proc.stderr
+
+
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z8kernel_aPj' for 'sm_90a'
+ptxas info    : Function properties for _Z8kernel_aPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z8kernel_bPj' for 'sm_90a'
+ptxas info    : Function properties for _Z8kernel_bPj
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, 4228 bytes smem, 384 bytes cmem[0]
+"""
+
+
+def test_bisect_parses_the_ptxas_report():
+    from bigsi_tpu_torch.scripts import bisect
+
+    assert bisect.parse_ptxas(PTXAS_REPORT) == {
+        "_Z8kernel_aPj": "Used 40 registers, 384 bytes cmem[0]; "
+                         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "_Z8kernel_bPj": "Used 255 registers, 4228 bytes smem, 384 bytes cmem[0]; "
+                         "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+    }
