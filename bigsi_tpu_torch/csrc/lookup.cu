@@ -40,21 +40,20 @@
 // kernel H, seq_streams, is the seq serving arm's prep: each is described
 // at its code below.
 //
-// What bounds kernels A, B and C on an H100: gathered bytes, at random rows.  At
-// m = 2.5e7 and W = 32 the matrix is 3.2 GB, far beyond the 50 MB L2, so
-// each k-mer costs h HBM reads of one 128-byte row segment; kernel F
-// reads such rows at 1.0-1.1 TB/s, a third of the card's 3.35 TB/s.  All
-// three take one block per (query, 32-word chunk) whose warps split the
-// query's k-mers (or entries) into contiguous runs, lane l owning word
-// 32 * chunk + l.  Row ids (or tiles and masks) are staged in shared
-// memory first, so no read waits on an index load, and the warps'
-// counters meet in shared memory at the end and leave in one coalesced
-// write.  Kernel A: 16 warps, 32 per-bit counters in registers, the
-// reads of kUnroll k-mers issued before any is consumed.  Kernels B and
-// C, redesigned for Hopper, run on one kernel (slot_counts_kernel: C's
-// entries are R slots of one tile, B's k-mers slots of their own), 8
-// warps a block, so two blocks share an SM and B = 256 queries fill the
-// card in one wave:
+// What bounds kernels A, B and C on an H100: gathered bytes, at random
+// rows.  At m = 2.5e7 and W = 32 the matrix is 3.2 GB, far beyond the 50
+// MB L2, so each k-mer costs h HBM reads of one 128-byte row segment;
+// they read such rows at 1.0-1.2 TB/s, about a third of the card's 3.35
+// TB/s, and the rate does not rise when the rows come from 512 MB rather
+// than 3.2 GB (PERF.md, section 7).  All three run on one kernel
+// (slot_counts_kernel, below), whose items are A's classic k-mers, B's
+// slots or C's entries' slots: one block per (query, 32-word chunk) of 8
+// warps, so two blocks share an SM and B = 256 queries fill the card in
+// one wave, the warps splitting the query's live items into contiguous
+// runs, lane l owning word 32 * chunk + l.  Row ids (or tiles and masks)
+// are staged in shared memory first, so no read waits on an index load,
+// and the warps' counters meet in shared memory at the end and leave in
+// one coalesced write.  The design for Hopper:
 //   - Bit-plane counters (Planes, below) in place of per-bit adds, which
 //     cost 64 instructions a k-mer and 32 registers.  A lane keeps its 32
 //     samples' counts as vertical counters, plane d holding bit d of all
@@ -64,17 +63,26 @@
 //     far: about 5 logic ops a word.  The planes are unpacked into 32
 //     counts only when they flush into the block's shared counters,
 //     before any count could pass 2^16 - 1 and at the end.
-//   - Live slots only.  Staging drops padding (mask 0), which adds
-//     nothing to counts and all ones to exact: at R = 6 about half of
-//     C's slots.
-//   - Reads in flight while counting: the reads of the next 8 slots'
+//   - Live items only.  Staging drops padding (a k-mer not valid, a slot
+//     of mask 0), which adds nothing to counts and all ones to exact: at
+//     R = 6 about half of C's slots.
+//   - Reads in flight while counting: the reads of the next 8 items'
 //     rows are issued into registers before the current 8 are counted,
 //     a row that several slots of an entry select coming again from L1.
 //     No shared memory holds rows: C's per-warp [tile_rows][32] buffers
-//     (128 KB a block) are gone, and a block stages only its slots.  A
+//     (128 KB a block) are gone, and a block stages only its items.  A
 //     per-warp cp.async ring of each entry's selected rows, compacted,
 //     was measured slower for both B and C on an H100 80GB HBM3
 //     (PERF.md, section 6).
+//   - The whole card for small batches (kernel A).  B x ceil(W / 32)
+//     blocks leave most of 132 SMs idle when B is small: a single query
+//     (B = 1, every classic search) took one block on one SM, 1.45 ms for
+//     20,000 k-mers.  The wrapper then splits each query's items into
+//     contiguous ranges, one block each (grid (B, chunks, ranges); how
+//     many from B, K, W and the SM count, fused_lookup.classic_splits),
+//     and the blocks add their counts and AND their exact words into
+//     outputs set to 0 and all ones.  A batch that fills the card (B =
+//     256) takes one range, as before.
 // The TPU kernel's run-deduplicated DMA streams, twisted count order,
 // bank-alternated slots and W == 32 limit served the TPU's DMA issue
 // rate and scalar memory; here L1 and L2 serve a repeated tile.
@@ -89,26 +97,17 @@
 
 namespace {
 
-constexpr int kWarps = 16;
+constexpr int kWarps = 16;  // warps of a tile_xor block
 constexpr int kThreads = 32 * kWarps;
-constexpr int kUnroll = 4;    // k-mers whose row reads are issued together
 constexpr int kStride = 33;   // padded row of the shared counters
 constexpr unsigned kAllOnes = 0xFFFFFFFFu;
 
-struct Acc {
-  int cnt[32];
-  unsigned exact;
-};
-
-__device__ __forceinline__ void add_kmer(Acc& acc, unsigned p) {
-#pragma unroll
-  for (int j = 0; j < 32; ++j) acc.cnt[j] += (p >> j) & 1u;
-  acc.exact &= p;
-}
-
 // Writes query b's slice of counts from the block's counters s_cnt (32
-// per word, sample order) and, with kExact, exact for this chunk.
-template <bool kExact = true>
+// per word, sample order) and, with kExact, exact for this chunk.  With
+// kAdd the block took one range of the query's items: it adds its counts
+// into counts and ANDs its exact into exact, which start at 0 and all
+// ones.
+template <bool kExact, bool kAdd = false>
 __device__ __forceinline__ void store_counts(const int* s_cnt, const unsigned* s_exact, int b,
                                              int chunk, int W, int32_t* __restrict__ counts,
                                              int32_t* __restrict__ exact) {
@@ -116,29 +115,21 @@ __device__ __forceinline__ void store_counts(const int* s_cnt, const unsigned* s
   const size_t word0 = static_cast<size_t>(b) * W + static_cast<size_t>(chunk) * 32;
   int32_t* out = counts + word0 * 32;
   for (int i = threadIdx.x; i < nw * 32; i += blockDim.x) {
-    out[i] = s_cnt[(i >> 5) * kStride + (i & 31)];
+    const int c = s_cnt[(i >> 5) * kStride + (i & 31)];
+    if (!kAdd) {
+      out[i] = c;
+    } else if (c != 0) {
+      atomicAdd(out + i, c);
+    }
   }
   if (kExact && threadIdx.x < nw) {
-    exact[word0 + threadIdx.x] = static_cast<int32_t>(s_exact[threadIdx.x]);
+    const int32_t e = static_cast<int32_t>(s_exact[threadIdx.x]);
+    if (!kAdd) {
+      exact[word0 + threadIdx.x] = e;
+    } else if (e != -1) {
+      atomicAnd(exact + word0 + threadIdx.x, e);
+    }
   }
-}
-
-// Sums the block's accumulators and writes query b's slice of counts
-// and exact.
-__device__ void write_out(const Acc& acc, int b, int chunk, int W,
-                          int32_t* __restrict__ counts,
-                          int32_t* __restrict__ exact) {
-  __shared__ int s_cnt[32 * kStride];
-  __shared__ unsigned s_exact[32];
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < 32 * kStride; i += blockDim.x) s_cnt[i] = 0;
-  if (threadIdx.x < 32) s_exact[threadIdx.x] = kAllOnes;
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < 32; ++j) atomicAdd(&s_cnt[lane * kStride + j], acc.cnt[j]);
-  atomicAnd(&s_exact[lane], acc.exact);
-  __syncthreads();
-  store_counts(s_cnt, s_exact, b, chunk, W, counts, exact);
 }
 
 // The contiguous run [lo, hi) of a staged chunk of n k-mers that this
@@ -150,68 +141,22 @@ __device__ __forceinline__ void warp_run(int n, int& lo, int& hi) {
   hi = min(n, lo + per);
 }
 
-__global__ void __launch_bounds__(kThreads)
-classic_counts_kernel(const unsigned* __restrict__ words, int W,
-                      const int32_t* __restrict__ row_idx,
-                      const uint8_t* __restrict__ mask, int K, int h, int kc,
-                      int32_t* __restrict__ counts, int32_t* __restrict__ exact) {
-  extern __shared__ int32_t s_rows[];  // [kc * h] row ids, then kc flags
-  uint8_t* s_valid = reinterpret_cast<uint8_t*>(s_rows + kc * h);
-  const int b = blockIdx.x;
-  const int chunk = blockIdx.y;
-  const int w = chunk * 32 + (threadIdx.x & 31);
-  const bool live = w < W;
-  const int32_t* q_rows = row_idx + static_cast<size_t>(b) * K * h;
-  const uint8_t* q_valid = mask + static_cast<size_t>(b) * K;
-  Acc acc = {};
-  acc.exact = kAllOnes;
-  for (int k0 = 0; k0 < K; k0 += kc) {
-    const int n = min(kc, K - k0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < n * h; i += blockDim.x) {
-      s_rows[i] = q_rows[static_cast<size_t>(k0) * h + i];
-    }
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s_valid[i] = q_valid[k0 + i];
-    __syncthreads();
-    int lo, hi;
-    warp_run(n, lo, hi);
-    for (int i = lo; i < hi; i += kUnroll) {
-      unsigned p[kUnroll];
-      bool ok[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int e = i + u;
-        ok[u] = e < hi && s_valid[e] != 0;
-        p[u] = kAllOnes;
-        if (ok[u] && live) {
-          const int32_t* r = s_rows + e * h;
-          for (int j = 0; j < h; ++j) {
-            p[u] &= __ldg(words + static_cast<size_t>(r[j]) * W + w);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (ok[u]) add_kmer(acc, p[u]);
-      }
-    }
-  }
-  write_out(acc, b, chunk, W, counts, exact);
-}
-
-// -- kernels B and C: bit-plane counters over a slot stream ---------------
+// -- kernels A, B and C: bit-plane counters over a stream of items --------
 //
-// A slot is a tile id and a 64-bit mask whose set bits s select the
-// tile's rows s (bits at or past tile_rows select nothing; mask 0 is
+// All three count a stream of items per query, an item being one k-mer
+// and the rows whose AND says which samples hold it: for kernel A a
+// classic k-mer, h absolute row ids (ClassicRows); for kernels B and C a
+// slot, a tile id and a 64-bit mask whose set bits s select the tile's
+// rows s (SlotRows; bits at or past tile_rows select nothing, mask 0 is
 // padding).  Kernel B's k-mers are slots, one to a tile; kernel C's entry
-// is one tile and R slots.  So both run on slot_counts_kernel, which
-// takes per query T tiles of R slots (B: T = K, R = 1).  A warp walks its
-// run of slots kBGroup at a time and issues the reads of the next group's
-// rows (the first kBRows of each slot; any further rows are read when the
-// slot is counted) before it counts the current group.  A row that
-// several slots of an entry select is read again, from L1.
+// is one tile and R slots.  So one kernel, slot_counts_kernel, runs all
+// three.  A warp walks its run of staged items kBGroup at a time and
+// issues the reads of the next group's rows (the first kBRows of each
+// item; any further rows are read when the item is counted) before it
+// counts the current group.  A row that several slots of an entry select
+// is read again, from L1.
 
-constexpr size_t kStageBytes = 32 * 1024;  // shared memory for staged k-mers or slots
+constexpr size_t kStageBytes = 32 * 1024;  // shared memory for staged items
 
 constexpr int kPlanes = 16;                    // count bits a lane keeps per sample
 constexpr int kPlaneMax = (1 << kPlanes) - 1;  // the largest count the planes hold
@@ -281,99 +226,182 @@ struct Planes {
   }
 };
 
-// -- the slot stream in registers -----------------------------------------
-
 constexpr int kBWarps = 8;
 constexpr int kBThreads = 32 * kBWarps;
-constexpr int kBGroup = 8;  // k-mers counted together, one Planes::add8
-constexpr int kBRows = 4;   // rows of a k-mer read ahead; any further rows (a mask
-                            // of more than 4 bits) are read when it is counted
+constexpr int kBGroup = 8;  // items counted together, one Planes::add8
+constexpr int kBRows = 4;   // rows of an item read ahead; any further rows are
+                            // read when it is counted
 
-// Issues the reads of the first kBRows rows that each k-mer of [e0, e0 +
-// kBGroup) selects, cut to the warp's run [., hi), into v (all ones where
-// a k-mer has no such row).  col points at this lane's word of row 0.
-__device__ __forceinline__ void rows_ahead(unsigned (&v)[kBGroup][kBRows],
-                                           const unsigned long long* s_mask,
-                                           const int32_t* s_tile, int e0, int hi,
-                                           unsigned long long rows_mask,
-                                           const unsigned* col, int W, int tile_rows,
-                                           bool live) {
-#pragma unroll
-  for (int u = 0; u < kBGroup; ++u) {
-    const int e = e0 + u;
-    unsigned long long sel = e < hi ? s_mask[e] & rows_mask : 0ull;
+// Kernels B and C: item i of query b is slot i of T tiles of R slots, tile
+// tile[b, i / R] and mask mask[b, i], live when the mask is not 0.  A
+// block stages [kc] masks, then [kc] tiles, one per live slot.
+struct SlotRows {
+  const int32_t* __restrict__ tile;
+  const int64_t* __restrict__ mask;
+  int T, R, tile_rows;
+  unsigned long long* s_mask;  // the block's staged slots, set by bind
+  int32_t* s_tile;
+  unsigned long long rows_mask;  // the bits that select a row, set by bind
+
+  static constexpr size_t kStaged = sizeof(unsigned long long) + sizeof(int32_t);
+  static constexpr bool kSplit = false;  // a query's slots stay in one block
+  __host__ __device__ size_t staged_bytes() const { return kStaged; }
+  __host__ __device__ int items() const { return T * R; }
+
+  // Points the streams at query b and the staging at the block's smem.
+  __device__ __forceinline__ void bind(int b, unsigned long long* smem, int kc) {
+    tile += static_cast<size_t>(b) * T;
+    mask += static_cast<size_t>(b) * T * R;
+    s_mask = smem;
+    s_tile = reinterpret_cast<int32_t*>(smem + kc);
+    rows_mask = tile_rows >= 64 ? ~0ull : (1ull << tile_rows) - 1ull;
+  }
+  // Item i's key, 0 for padding: its mask.
+  __device__ __forceinline__ unsigned long long key(int i) const {
+    return static_cast<unsigned long long>(mask[i]);
+  }
+  __device__ __forceinline__ void stage(int at, int i, unsigned long long key) const {
+    s_mask[at] = key;
+    s_tile[at] = tile[R == 1 ? i : i / R];
+  }
+  __device__ __forceinline__ unsigned long long selected(int e) const {
+    return s_mask[e] & rows_mask;
+  }
+  // Issues the reads of the first kBRows rows that staged slot e selects
+  // into v (all ones where it has no such row, or past the run's end hi);
+  // col points at this lane's word of row 0.
+  __device__ __forceinline__ void first(unsigned (&v)[kBRows], int e, int hi,
+                                        const unsigned* col, int W, bool live) const {
+    unsigned long long sel = e < hi ? selected(e) : 0ull;
     const size_t base = e < hi ? static_cast<size_t>(s_tile[e]) * tile_rows : 0;
 #pragma unroll
     for (int i = 0; i < kBRows; ++i) {
-      v[u][i] = kAllOnes;
+      v[i] = kAllOnes;
       if (sel != 0ull) {
         const size_t s = __ffsll(static_cast<long long>(sel)) - 1;
         sel &= sel - 1ull;
-        if (live) v[u][i] = __ldg(col + (base + s) * W);
+        if (live) v[i] = __ldg(col + (base + s) * W);
       }
     }
   }
+  // ANDs into c the rows of staged slot e past its first kBRows.
+  __device__ __forceinline__ void rest(unsigned& c, int e, const unsigned* col, int W,
+                                       bool live) const {
+    unsigned long long sel = selected(e);
+    if (__popcll(sel) <= kBRows) return;
+    for (int i = 0; i < kBRows; ++i) sel &= sel - 1ull;
+    const size_t base = static_cast<size_t>(s_tile[e]) * tile_rows;
+    for (; sel != 0ull; sel &= sel - 1ull) {
+      const size_t s = __ffsll(static_cast<long long>(sel)) - 1;
+      if (live) c &= __ldg(col + (base + s) * W);
+    }
+  }
+};
+
+// Kernel A: item i of query b is k-mer i, rows row_idx[b, i, 0..h), live
+// when valid[b, i].  A block stages [kc][h] row ids, one row per live
+// k-mer.
+struct ClassicRows {
+  const int32_t* __restrict__ row_idx;
+  const uint8_t* __restrict__ valid;
+  int K, h;
+  int32_t* s_rows;  // the block's staged row ids, set by bind
+
+  static constexpr bool kSplit = true;  // a query's k-mers may span blocks
+  __host__ __device__ size_t staged_bytes() const { return h * sizeof(int32_t); }
+  __host__ __device__ int items() const { return K; }
+
+  __device__ __forceinline__ void bind(int b, unsigned long long* smem, int) {
+    row_idx += static_cast<size_t>(b) * K * h;
+    valid += static_cast<size_t>(b) * K;
+    s_rows = reinterpret_cast<int32_t*>(smem);
+  }
+  // Item i's key, 0 for padding: its valid flag.
+  __device__ __forceinline__ unsigned long long key(int i) const { return valid[i]; }
+  __device__ __forceinline__ void stage(int at, int i, unsigned long long) const {
+    const int32_t* r = row_idx + static_cast<size_t>(i) * h;
+    for (int j = 0; j < h; ++j) s_rows[at * h + j] = r[j];
+  }
+  __device__ __forceinline__ void first(unsigned (&v)[kBRows], int e, int hi,
+                                        const unsigned* col, int W, bool live) const {
+#pragma unroll
+    for (int i = 0; i < kBRows; ++i) {
+      v[i] = kAllOnes;
+      if (e < hi && i < h && live) v[i] = __ldg(col + static_cast<size_t>(s_rows[e * h + i]) * W);
+    }
+  }
+  __device__ __forceinline__ void rest(unsigned& c, int e, const unsigned* col, int W,
+                                       bool live) const {
+    for (int j = kBRows; j < h; ++j) {
+      if (live) c &= __ldg(col + static_cast<size_t>(s_rows[e * h + j]) * W);
+    }
+  }
+};
+
+// The first reads of the items [e0, e0 + kBGroup) of a warp's run [., hi).
+template <typename Rows>
+__device__ __forceinline__ void rows_ahead(unsigned (&v)[kBGroup][kBRows], const Rows& rows,
+                                           int e0, int hi, const unsigned* col, int W,
+                                           bool live) {
+#pragma unroll
+  for (int u = 0; u < kBGroup; ++u) rows.first(v[u], e0 + u, hi, col, W, live);
 }
 
-// Slot i of query b has tile tile[b, i / R] and mask mask[b, i], for i
-// below T * R.  Only live slots (mask != 0) are staged, in warp-sized
-// runs of stream order: padding adds nothing to counts and all ones to
-// exact, so dropping it changes neither, and the warps split the live
-// slots evenly.  kExact = false is the counts-only build: exact is not
-// written (and may be null).  Dynamic shared memory: [kc] masks, then
-// [kc] tiles, one per staged slot.
-template <bool kExact>
+// grid (B, ceil(W / 32), S): block (b, chunk, z) counts range z of S of
+// query b's items for 32-word chunk `chunk` (S > 1 adds into outputs the
+// caller set to 0 and all ones).  Only live items are staged, in
+// warp-sized runs of stream order: padding adds nothing to counts and all
+// ones to exact, so dropping it changes neither, and the warps split the
+// live items evenly.  kExact = false is the counts-only build: exact is
+// not written (and may be null).  Dynamic shared memory: [kc] staged items
+// (Rows::staged_bytes each).
+template <bool kExact, typename Rows>
 __global__ void __launch_bounds__(kBThreads)
-slot_counts_kernel(const unsigned* __restrict__ words, int W,
-                   const int32_t* __restrict__ tile,
-                   const int64_t* __restrict__ mask, int T, int R, int tile_rows,
-                   int kc, int32_t* __restrict__ counts,
-                   int32_t* __restrict__ exact) {
-  extern __shared__ unsigned long long s_mask[];
-  int32_t* s_tile = reinterpret_cast<int32_t*>(s_mask + kc);
+slot_counts_kernel(const unsigned* __restrict__ words, int W, Rows rows, int kc,
+                   int32_t* __restrict__ counts, int32_t* __restrict__ exact) {
+  extern __shared__ unsigned long long s_stage[];
   __shared__ int s_cnt[32 * kStride];
   __shared__ unsigned s_exact[32];
   __shared__ int s_staged;
-  const unsigned long long rows_mask =
-      tile_rows >= 64 ? ~0ull : (1ull << tile_rows) - 1ull;
   const int b = blockIdx.x;
+  rows.bind(b, s_stage, kc);
   const int chunk = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int w = chunk * 32 + lane;
   const bool live = w < W;
   const unsigned* col = words + w;
   int* cnt = s_cnt + lane * kStride;
-  const int K = T * R;
-  const int32_t* q_tile = tile + static_cast<size_t>(b) * T;
-  const int64_t* q_mask = mask + static_cast<size_t>(b) * K;
+  const int items = rows.items();
+  const int splits = Rows::kSplit ? gridDim.z : 1;
+  const int per = (items + splits - 1) / splits;
+  const int begin = min(items, static_cast<int>(blockIdx.z) * per);
+  const int end = min(items, begin + per);
   for (int i = threadIdx.x; i < 32 * kStride; i += blockDim.x) s_cnt[i] = 0;
   if (threadIdx.x < 32) s_exact[threadIdx.x] = kAllOnes;
   __syncthreads();
   Planes acc;
   acc.init();
   unsigned ex = kAllOnes;
-  for (int k0 = 0; k0 < K; k0 += kc) {
-    const int n = min(kc, K - k0);
+  for (int k0 = begin; k0 < end; k0 += kc) {
+    const int n = min(kc, end - k0);
     __syncthreads();  // the previous chunk is consumed
     if (threadIdx.x == 0) s_staged = 0;
     __syncthreads();
     for (int i0 = 0; i0 < n; i0 += blockDim.x) {
       const int i = i0 + threadIdx.x;
-      const unsigned long long m = i < n ? static_cast<unsigned long long>(q_mask[k0 + i]) : 0ull;
-      const unsigned keep = __ballot_sync(kAllOnes, m != 0ull);
+      const unsigned long long key = i < n ? rows.key(k0 + i) : 0ull;
+      const bool keep = key != 0ull;
+      const unsigned kept = __ballot_sync(kAllOnes, keep);
       int at = 0;
-      if (lane == 0 && keep != 0u) at = atomicAdd(&s_staged, __popc(keep));
-      at = __shfl_sync(kAllOnes, at, 0) + __popc(keep & ((1u << lane) - 1u));
-      if (m != 0ull) {
-        s_mask[at] = m;
-        s_tile[at] = q_tile[R == 1 ? k0 + i : (k0 + i) / R];
-      }
+      if (lane == 0 && kept != 0u) at = atomicAdd(&s_staged, __popc(kept));
+      at = __shfl_sync(kAllOnes, at, 0) + __popc(kept & ((1u << lane) - 1u));
+      if (keep) rows.stage(at, k0 + i, key);
     }
     __syncthreads();
     int lo, hi;
     warp_run<kBWarps>(s_staged, lo, hi);
     unsigned v[kBGroup][kBRows];
-    if (lo < hi) rows_ahead(v, s_mask, s_tile, lo, hi, rows_mask, col, W, tile_rows, live);
+    if (lo < hi) rows_ahead(v, rows, lo, hi, col, W, live);
     for (int e0 = lo; e0 < hi; e0 += kBGroup) {
       unsigned c[kBGroup];
 #pragma unroll
@@ -383,24 +411,13 @@ slot_counts_kernel(const unsigned* __restrict__ words, int W,
         for (int i = 1; i < kBRows; ++i) c[u] &= v[u][i];
       }
       // the next group's reads are in flight while this one is counted
-      if (e0 + kBGroup < hi) {
-        rows_ahead(v, s_mask, s_tile, e0 + kBGroup, hi, rows_mask, col, W, tile_rows, live);
-      }
+      if (e0 + kBGroup < hi) rows_ahead(v, rows, e0 + kBGroup, hi, col, W, live);
 #pragma unroll
       for (int u = 0; u < kBGroup; ++u) {
         const int e = e0 + u;
-        const unsigned long long sm = e < hi ? s_mask[e] : 0ull;
-        unsigned long long rest = sm & rows_mask;
-        if (__popcll(rest) > kBRows) {
-          for (int i = 0; i < kBRows; ++i) rest &= rest - 1ull;
-          const size_t base = static_cast<size_t>(s_tile[e]) * tile_rows;
-          for (; rest != 0ull; rest &= rest - 1ull) {
-            const size_t s = __ffsll(static_cast<long long>(rest)) - 1;
-            if (live) c[u] &= __ldg(col + (base + s) * W);
-          }
-        }
+        if (e < hi) rows.rest(c[u], e, col, W, live);
         if (kExact) ex &= c[u];
-        if (sm == 0ull) c[u] = 0u;  // a padding k-mer counts nothing
+        if (e >= hi) c[u] = 0u;  // past the run: counts nothing
       }
       acc.add8(c, cnt);
     }
@@ -408,29 +425,40 @@ slot_counts_kernel(const unsigned* __restrict__ words, int W,
   acc.flush(cnt);
   if (kExact) atomicAnd(&s_exact[lane], ex);
   __syncthreads();
-  store_counts<kExact>(s_cnt, s_exact, b, chunk, W, counts, exact);
+  if (splits == 1) {
+    store_counts<kExact>(s_cnt, s_exact, b, chunk, W, counts, exact);
+  } else {
+    store_counts<kExact, true>(s_cnt, s_exact, b, chunk, W, counts, exact);
+  }
+}
+
+// Kernels A, B and C: B queries of `rows`' items, each split into
+// `splits` ranges (1 unless Rows::kSplit).
+template <bool kExact, typename Rows>
+int launch_counts(const void* words, int W, const Rows& rows, int B, int splits, void* counts,
+                  void* exact, cudaStream_t stream) {
+  if (splits != 1 && !Rows::kSplit) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t per_item = rows.staged_bytes();
+  const int kc = static_cast<int>(std::max<int64_t>(
+      1, std::min<int64_t>(rows.items(), kStageBytes / per_item)));
+  const dim3 grid(B, (W + 31) / 32, splits);
+  slot_counts_kernel<kExact, Rows><<<grid, kBThreads, kc * per_item, stream>>>(
+      static_cast<const unsigned*>(words), W, rows, kc, static_cast<int32_t*>(counts),
+      static_cast<int32_t*>(exact));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B or C: T tiles of R slots per query.
 template <bool kExact>
-int launch_counts(const void* words, int W, const void* tile, const void* mask, int B, int T,
-                  int R, int tile_rows, void* counts, void* exact, cudaStream_t stream) {
+int launch_slots(const void* words, int W, const void* tile, const void* mask, int B, int T,
+                 int R, int tile_rows, void* counts, void* exact, cudaStream_t stream) {
   if (B <= 0 || W <= 0 || T < 0 || R < 0 || tile_rows < 1 || tile_rows > 64 ||
       static_cast<int64_t>(T) * R > 0x7FFFFFFF) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(B, (W + 31) / 32);
-  const auto* w = static_cast<const unsigned*>(words);
-  const auto* t = static_cast<const int32_t*>(tile);
-  const auto* m = static_cast<const int64_t*>(mask);
-  auto* c = static_cast<int32_t*>(counts);
-  auto* e = static_cast<int32_t*>(exact);
-  const size_t per_slot = sizeof(unsigned long long) + sizeof(int32_t);
-  const int kc = static_cast<int>(std::max<int64_t>(
-      1, std::min<int64_t>(static_cast<int64_t>(T) * R, kStageBytes / per_slot)));
-  slot_counts_kernel<kExact><<<grid, kBThreads, kc * per_slot, stream>>>(
-      w, W, t, m, T, R, tile_rows, kc, c, e);
-  return static_cast<int>(cudaGetLastError());
+  const SlotRows rows{static_cast<const int32_t*>(tile), static_cast<const int64_t*>(mask), T, R,
+                      tile_rows, nullptr, nullptr, 0ull};
+  return launch_counts<kExact>(words, W, rows, B, 1, counts, exact, stream);
 }
 
 
@@ -990,41 +1018,44 @@ tile_xor_kernel(const unsigned* __restrict__ words, int W, const int32_t* __rest
 // bigsi_tpu/ops/prep_jax.py:prep_streams_device: padded ASCII query bytes
 // (uint8[B, L], lens int32[B]) -> the grouped streams of slot scheme 3
 // that kernel E counts (utile int32[B, U], gmask int64[B, U, R] holding
-// 32-bit masks, n_valid int32[B]) and per query the number of entries it
-// needs (u_count int32[B]; the caller's ok is u_count <= U everywhere).
-// k-mer i of query b is valid when i < lens[b] - k + 1.  Per valid k-mer:
-// the forward and reverse-complement 2-bit codes (A and other bytes 0,
-// C 1, G 2, T 3; only ACGT are complemented), the slot mask (bit
-// (hv >> 6j) & (tile_rows - 1) for j < h, hv the splitmix64 of the
-// unsigned minimum of the two codes) and the tile (the unsigned minimum
-// of splitmix64(canonical s-mer ^ seed) over the w = k - s + 1 s-mers the
-// k-mer spans, modulo num_tiles).  A k-mer whose forward code occurred at
-// an earlier valid position is a duplicate: it keeps its slot with mask 0
-// and n_valid does not count it.  Runs of one tile open an entry at their
-// start and every R positions after (pos % R == 0); slot pos % R of the
-// entry holds the k-mer.  Entries at or past U are not written; what is
-// not written is 0.
+// 32-bit masks, n_valid int32[B]) and ok (one byte: every query needs at
+// most U entries).  k-mer i of query b is valid when i < lens[b] - k + 1.
+// Per valid k-mer: the forward and reverse-complement 2-bit codes (A and
+// other bytes 0, C 1, G 2, T 3; only ACGT are complemented), the slot
+// mask (bit (hv >> 6j) & (tile_rows - 1) for j < h, hv the splitmix64 of
+// the unsigned minimum of the two codes) and the tile (the unsigned
+// minimum of splitmix64(canonical s-mer ^ seed) over the w = k - s + 1
+// s-mers the k-mer spans, modulo num_tiles).  A k-mer whose forward code
+// occurred at an earlier valid position is a duplicate: it keeps its slot
+// with mask 0 and n_valid does not count it.  Runs of one tile open an
+// entry at their start and every R positions after (pos % R == 0); slot
+// pos % R of the entry holds the k-mer.  Entries at or past U are not
+// written; what is not written is 0.
 //
-// One block per query.  The query's bytes, its k-mers' forward codes,
-// masks and tiles, and the s-mer hashes live in shared memory (about 120
-// KB at L = 4,096, the longest query the engine's guard admits; opted in
-// past 48 KB).  Every pass is over positions, strided across the
-// threads: the s-mer hashes, then codes, masks and the sliding minimum
-// (w reads per k-mer), then the exact first-occurrence dedup, a pairwise
-// scan of the earlier codes (lanes read one code at a time, so a warp's
-// reads are broadcasts).  Run starts come from a block max-scan and entry
-// ids from a sum-scan, each thread owning a contiguous chunk of
-// positions, and every k-mer is then scattered straight to its slot.
-// What bounds it is the dedup: NK^2 / 2 compares per query, about 150,000
-// at L = 576 (the engine's guard bounds B * NK^2 for long queries).  On
-// an H100 80GB HBM3 at 700 W it takes 0.04 ms at B = 256, L = 576 (its
-// plain version 3.5-5.3 ms) and 0.61 ms at B = 8, L = 4,096, where 8
-// blocks leave most SMs idle.  The
-// JAX program's uint32-pair arithmetic, nibble long division, one-hot
-// compare-sums and NK chunking served the TPU and are not ported: u64 is
-// native here.
+// One block per query, five passes, each ending in a barrier.  The
+// query's bytes, its k-mers' forward codes, masks and tiles, the s-mer
+// hashes and the dedup table live in shared memory (about 150 KB at L =
+// 4,096, the longest query the engine's guard admits; opted in past 48
+// KB).  (1) The outputs' zero fill and the bytes in; (2) the s-mer hashes
+// and (3) per k-mer codes and masks, each thread rolling the codes over a
+// contiguous chunk of windows (a shift a byte where a byte loop per
+// window cost k), then the sliding minimum (w reads) over positions
+// strided across the threads; (4) the first-occurrence dedup through an
+// open-addressing table of positions (the dedup pass below): one insert
+// of 1.2-1.5 probes per k-mer, where a pairwise scan of the earlier codes
+// cost NK^2 / 2 compares (130,816 a query at L = 576, 8.3 million at L =
+// 4,096) and held 91 % of the kernel's 0.61 ms at B = 8, L = 4,096 on an
+// H100 80GB HBM3 at 700 W; (5) run starts from a block max-scan, entry
+// ids from a sum-scan, every k-mer scattered straight to its slot, and
+// ok cleared by a query that needs more than U entries (the launch sets
+// it first), in place of two PyTorch ops after the kernel.  On that card
+// the kernel takes 0.021 ms at B = 256, L = 576 and 0.042 ms at B = 8,
+// L = 4,096 (PERF.md, section 6).  The JAX program's uint32-pair
+// arithmetic, nibble long division, one-hot compare-sums and NK chunking
+// served the TPU and are not ported: u64 is native here.
 
 constexpr int kSeqThreads = 512;
+constexpr int kSeqPasses = 5;  // bytes, s-mer hashes, codes and minima, dedup, entries
 constexpr unsigned long long kSmGamma = 0x9E3779B97F4A7C15ull;
 constexpr unsigned long long kSmMul1 = 0xBF58476D1CE4E5B9ull;
 constexpr unsigned long long kSmMul2 = 0x94D049BB133111EBull;
@@ -1044,18 +1075,38 @@ __device__ __forceinline__ unsigned long long comp_code(uint8_t c) {
   return c == 'A' ? 3ull : c == 'C' ? 2ull : c == 'G' ? 1ull : 0ull;
 }
 
-// The forward code of bytes p[0, len) (len <= 32) into *fwd; returns the
-// canonical code, the unsigned minimum of the forward and
-// reverse-complement codes.
-__device__ __forceinline__ unsigned long long canonical_code(const uint8_t* p, int len,
-                                                             unsigned long long* fwd) {
-  unsigned long long f = 0ull, rc = 0ull;
-  for (int j = 0; j < len; ++j) {
-    f = (f << 2) | base_code(p[j]);
-    rc |= comp_code(p[j]) << (2 * j);
+// The forward and reverse-complement codes of the window of `len` bytes
+// (len <= 32) at p, rolled one byte at a time: a thread codes its first
+// window byte by byte and every later one with one shift each.
+struct Window {
+  unsigned long long fwd, rc, keep;
+  int top;  // the reverse-complement code's shift for the newest byte
+
+  __device__ __forceinline__ void start(const uint8_t* p, int len) {
+    keep = len == 32 ? ~0ull : (1ull << (2 * len)) - 1ull;
+    top = 2 * (len - 1);
+    fwd = rc = 0ull;
+    for (int j = 0; j < len; ++j) {
+      fwd = (fwd << 2) | base_code(p[j]);
+      rc |= comp_code(p[j]) << (2 * j);
+    }
   }
-  *fwd = f;
-  return f < rc ? f : rc;
+  // Moves to the next window, whose last byte is c.
+  __device__ __forceinline__ void next(uint8_t c) {
+    fwd = ((fwd << 2) | base_code(c)) & keep;
+    rc = (rc >> 2) | (comp_code(c) << top);
+  }
+  // The canonical code: the unsigned minimum of the two strands' codes.
+  __device__ __forceinline__ unsigned long long canonical() const {
+    return fwd < rc ? fwd : rc;
+  }
+};
+
+// The contiguous chunk [c0, c1) of n positions that this thread takes.
+__device__ __forceinline__ void thread_chunk(int n, int& c0, int& c1) {
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  c0 = min(n, static_cast<int>(threadIdx.x) * per);
+  c1 = min(n, c0 + per);
 }
 
 struct MaxOp {
@@ -1096,25 +1147,43 @@ __device__ int block_exclusive_scan(int v, int identity, Op op, int* s_warp) {
   return before;
 }
 
+// The end of a cut build of kernel H (kPasses < kSeqPasses): one value
+// of the last pass's shared state leaves, so no pass is compiled away.
+__device__ __forceinline__ void seq_sink(int b, int tid, unsigned long long v,
+                                         int32_t* __restrict__ n_valid) {
+  if (tid == 0) n_valid[b] = static_cast<int32_t>(v);
+}
+
+// The dedup table's slots: a power of two, at least twice the k-mers.
+__host__ __device__ __forceinline__ int table_bits(int nk) {
+  int bits = 1;
+  while ((1 << bits) < 2 * nk) ++bits;
+  return bits;
+}
+
 // Dynamic shared memory: [NK] forward codes and [NS] s-mer hashes (u64),
-// [NK] tiles, [NK] masks, [NK] run starts then positions in run (32-bit),
-// then the [L] query bytes.
+// [NK] tiles, [NK] masks, [NK] table slots then positions in run, [2^t]
+// the dedup table (32-bit), then the [L] query bytes.  *ok must hold 1
+// before the launch; a query that needs more than U entries clears it.
+template <int kPasses>
 __global__ void __launch_bounds__(kSeqThreads)
 seq_streams_kernel(const uint8_t* __restrict__ seqs, int L, const int32_t* __restrict__ lens,
                    int k, int s, unsigned long long seed, unsigned long long num_tiles, int h,
                    int tile_rows, int R, int U, int32_t* __restrict__ utile,
                    int64_t* __restrict__ gmask, int32_t* __restrict__ n_valid,
-                   int32_t* __restrict__ u_count) {
+                   uint8_t* __restrict__ ok) {
   extern __shared__ unsigned long long s_code[];
   __shared__ int s_warp[32];
   __shared__ int s_appended;
   const int nk = L - k + 1;
   const int w = k - s + 1;
+  const int bits = table_bits(nk);
   unsigned long long* s_hash = s_code + nk;
   int32_t* s_tile = reinterpret_cast<int32_t*>(s_hash + (L - s + 1));
   unsigned* s_mask = reinterpret_cast<unsigned*>(s_tile + nk);
   int32_t* s_pos = reinterpret_cast<int32_t*>(s_mask + nk);
-  uint8_t* s_seq = reinterpret_cast<uint8_t*>(s_pos + nk);
+  int* s_table = s_pos + nk;
+  uint8_t* s_seq = reinterpret_cast<uint8_t*>(s_table + (1 << bits));
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nv = max(0, min(nk, lens[b] - (k - 1)));  // valid k-mers: a prefix
@@ -1124,51 +1193,86 @@ seq_streams_kernel(const uint8_t* __restrict__ seqs, int L, const int32_t* __res
   for (int i = tid; i < U * R; i += blockDim.x) q_gmask[i] = 0;
   const uint8_t* q_seq = seqs + static_cast<size_t>(b) * L;
   for (int i = tid; i < L; i += blockDim.x) s_seq[i] = q_seq[i];
+  for (int i = tid; i < (1 << bits); i += blockDim.x) s_table[i] = -1;
   if (tid == 0) s_appended = 0;
   __syncthreads();
+  if constexpr (kPasses == 1) return seq_sink(b, tid, s_seq[0], n_valid);
 
-  // the seeded s-mer hashes of every window a valid k-mer spans
-  const int nh = nv > 0 ? nv + w - 1 : 0;
-  unsigned long long fwd;
-  for (int p = tid; p < nh; p += blockDim.x) {
-    s_hash[p] = splitmix64(canonical_code(s_seq + p, s, &fwd) ^ seed);
+  // the seeded s-mer hashes of every window a valid k-mer spans, rolled
+  // over each thread's chunk of windows
+  int c0, c1;
+  thread_chunk(nv > 0 ? nv + w - 1 : 0, c0, c1);
+  Window win;
+  if (c0 < c1) win.start(s_seq + c0, s);
+  for (int p = c0; p < c1; ++p) {
+    if (p > c0) win.next(s_seq[p + s - 1]);
+    s_hash[p] = splitmix64(win.canonical() ^ seed);
   }
   __syncthreads();
+  if constexpr (kPasses == 2) return seq_sink(b, tid, s_hash[0], n_valid);
 
-  // per k-mer: forward code, slot mask, minimizer tile
+  // per k-mer: forward code and slot mask, rolled over each thread's
+  // chunk; then the minimizer tile, strided, so a warp's w reads of the
+  // s-mer hashes fall on neighbouring words and not on two banks
   const unsigned long long slot_bits = static_cast<unsigned long long>(tile_rows - 1);
-  for (int i = tid; i < nv; i += blockDim.x) {
-    const unsigned long long hv = splitmix64(canonical_code(s_seq + i, k, &fwd));
+  thread_chunk(nv, c0, c1);
+  if (c0 < c1) win.start(s_seq + c0, k);
+  for (int i = c0; i < c1; ++i) {
+    if (i > c0) win.next(s_seq[i + k - 1]);
+    const unsigned long long hv = splitmix64(win.canonical());
     unsigned m = 0u;
     for (int j = 0; j < h; ++j) m |= 1u << static_cast<int>((hv >> (6 * j)) & slot_bits);
+    s_code[i] = win.fwd;
+    s_mask[i] = m;
+  }
+  for (int i = tid; i < nv; i += blockDim.x) {
     unsigned long long mn = s_hash[i];
     for (int j = 1; j < w; ++j) mn = min(mn, s_hash[i + j]);
-    s_code[i] = fwd;
-    s_mask[i] = m;
     s_tile[i] = static_cast<int32_t>(mn % num_tiles);
   }
   __syncthreads();
+  if constexpr (kPasses == 3) {
+    return seq_sink(b, tid, s_code[0] ^ s_mask[0] ^ s_tile[0], n_valid);
+  }
 
-  // exact dedup: the first occurrence of a forward code wins
-  int appended = 0;
+  // exact dedup, the first occurrence of a forward code winning: open
+  // addressing over 2^bits slots of positions (-1 empty), probing from the
+  // code's multiplicative hash.  A slot, once claimed, only ever holds
+  // positions of its claimant's code, so an insert that meets its code
+  // lowers the slot to its position; after the barrier k-mer i is a
+  // duplicate exactly when its code's slot does not hold i.  Positions,
+  // not codes, fill the table: every u64 is a forward code at k = 32.
+  const unsigned last_slot = (1u << bits) - 1u;
   for (int i = tid; i < nv; i += blockDim.x) {
     const unsigned long long me = s_code[i];
-    bool dup = false;
-    for (int j = 0; j < i && !dup; ++j) dup = s_code[j] == me;
-    if (dup) {
-      s_mask[i] = 0u;
-    } else {
+    unsigned slot = static_cast<unsigned>((me * kSmGamma) >> (64 - bits));
+    for (;;) {
+      const int owner = atomicCAS(&s_table[slot], -1, i);
+      if (owner < 0) break;
+      if (s_code[owner] == me) {
+        if (owner > i) atomicMin(&s_table[slot], i);
+        break;
+      }
+      slot = (slot + 1u) & last_slot;
+    }
+    s_pos[i] = static_cast<int32_t>(slot);
+  }
+  __syncthreads();
+  int appended = 0;
+  for (int i = tid; i < nv; i += blockDim.x) {
+    if (s_table[s_pos[i]] == i) {
       ++appended;
+    } else {
+      s_mask[i] = 0u;
     }
   }
   if (appended) atomicAdd(&s_appended, appended);
   __syncthreads();
+  if constexpr (kPasses == 4) return seq_sink(b, tid, s_appended, n_valid);
 
   // run starts: a max-scan of (i where a run starts, else -1) over the
   // threads' contiguous chunks [c0, c1)
-  const int per = (nv + blockDim.x - 1) / blockDim.x;
-  const int c0 = min(nv, tid * per);
-  const int c1 = min(nv, c0 + per);
+  thread_chunk(nv, c0, c1);
   int start = -1;
   for (int i = c0; i < c1; ++i) {
     if (i == 0 || s_tile[i] != s_tile[i - 1]) start = i;
@@ -1195,34 +1299,66 @@ seq_streams_kernel(const uint8_t* __restrict__ seqs, int L, const int32_t* __res
     }
   }
   if (tid == blockDim.x - 1) {
-    u_count[b] = before + opened;
+    if (before + opened > U) *ok = 0;
     n_valid[b] = s_appended;
   }
 }
 
+template <int kPasses>
+int launch_seq_streams(const void* seqs, int B, int L, const void* lens, int k, int s,
+                       unsigned long long seed, int64_t num_tiles, int h, int tile_rows, int R,
+                       int U, void* utile, void* gmask, void* n_valid, void* ok,
+                       void* stream) {
+  if (B <= 0 || k < 1 || k > 32 || s < 1 || s > k || L < k || h < 1 || h > 10 ||
+      tile_rows < 1 || tile_rows > 32 || (tile_rows & (tile_rows - 1)) || num_tiles < 1 ||
+      num_tiles >= (int64_t{1} << 31) || R < 1 || U < 0 ||
+      static_cast<int64_t>(U) * R > 0x7FFFFFFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t nk = static_cast<size_t>(L - k + 1);
+  const size_t smem = (nk + static_cast<size_t>(L - s + 1)) * sizeof(unsigned long long) +
+                      (nk * 3 + (size_t{1} << table_bits(static_cast<int>(nk)))) *
+                          sizeof(int32_t) +
+                      static_cast<size_t>(L);
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem + 256 > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(seq_streams_kernel<kPasses>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(ok, 1, 1, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  seq_streams_kernel<kPasses><<<B, kSeqThreads, smem, st>>>(
+      static_cast<const uint8_t*>(seqs), L, static_cast<const int32_t*>(lens), k, s, seed,
+      static_cast<unsigned long long>(num_tiles), h, tile_rows, R, U,
+      static_cast<int32_t*>(utile), static_cast<int64_t*>(gmask),
+      static_cast<int32_t*>(n_valid), static_cast<uint8_t*>(ok));
+  return static_cast<int>(cudaGetLastError());
+}
 }  // namespace
 
 extern "C" {
 
 // words uint32[m, W]; row_idx int32[B, K, h], every id in [0, m);
-// mask uint8[B, K]; counts int32[B, W * 32]; exact int32[B, W].
-// Launches on `stream` and returns cudaGetLastError().
-int classic_counts(const void* words, int W, const void* row_idx,
-                   const void* mask, int B, int K, int h, void* counts,
-                   void* exact, void* stream) {
-  if (B <= 0 || W <= 0 || K < 0 || h <= 0 ||
+// mask uint8[B, K]; counts int32[B, W * 32]; exact int32[B, W].  Each
+// query's k-mers are split into `splits` ranges, one block each; with
+// splits > 1 counts and exact must hold 0 and all ones.  Launches on
+// `stream` and returns cudaGetLastError().
+int classic_counts(const void* words, int W, const void* row_idx, const void* mask, int B,
+                   int K, int h, int splits, void* counts, void* exact, void* stream) {
+  if (B <= 0 || W <= 0 || K < 0 || h <= 0 || splits < 1 || splits > 65535 ||
       static_cast<size_t>(h) * sizeof(int32_t) > kStageBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int kc = static_cast<int>(
-      std::max<size_t>(1, std::min<size_t>(K, kStageBytes / (static_cast<size_t>(h) * sizeof(int32_t)))));
-  const size_t smem = static_cast<size_t>(kc) * (h * sizeof(int32_t) + 1);
-  const dim3 grid(B, (W + 31) / 32);
-  classic_counts_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(words), W, static_cast<const int32_t*>(row_idx),
-      static_cast<const uint8_t*>(mask), K, h, kc, static_cast<int32_t*>(counts),
-      static_cast<int32_t*>(exact));
-  return static_cast<int>(cudaGetLastError());
+  const ClassicRows rows{static_cast<const int32_t*>(row_idx), static_cast<const uint8_t*>(mask),
+                         K, h, nullptr};
+  return launch_counts<true>(words, W, rows, B, splits, counts, exact,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // words uint32[m_pad, W] with m_pad a multiple of tile_rows; tile
@@ -1231,14 +1367,14 @@ int classic_counts(const void* words, int W, const void* row_idx,
 int tile_counts(const void* words, int W, const void* tile, const void* smask,
                 int B, int K, int tile_rows, void* counts, void* exact,
                 void* stream) {
-  return launch_counts<true>(words, W, tile, smask, B, K, 1, tile_rows, counts, exact,
+  return launch_slots<true>(words, W, tile, smask, B, K, 1, tile_rows, counts, exact,
                              static_cast<cudaStream_t>(stream));
 }
 
 // tile_counts without the exact AND: counts only.
 int tile_counts_only(const void* words, int W, const void* tile, const void* smask,
                      int B, int K, int tile_rows, void* counts, void* stream) {
-  return launch_counts<false>(words, W, tile, smask, B, K, 1, tile_rows, counts, nullptr,
+  return launch_slots<false>(words, W, tile, smask, B, K, 1, tile_rows, counts, nullptr,
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -1283,7 +1419,7 @@ int tile_xor(const void* words, int W, const void* tile, const void* valid, int 
 int grouped_tile_counts(const void* words, int W, const void* utile,
                         const void* gmask, int B, int U, int R, int tile_rows,
                         void* counts, void* exact, void* stream) {
-  return launch_counts<true>(words, W, utile, gmask, B, U, R, tile_rows, counts, exact,
+  return launch_slots<true>(words, W, utile, gmask, B, U, R, tile_rows, counts, exact,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -1327,37 +1463,33 @@ int cols_counts(const void* cols, int W, int elem_bytes, const void* utile,
 }
 
 // seqs uint8[B, L]; lens int32[B]; utile int32[B, U]; gmask int64[B, U, R];
-// n_valid int32[B]; u_count int32[B].  1 <= s <= k <= 32, L >= k,
+// n_valid int32[B]; ok uint8[1], 1 when every query needs at most U
+// entries, else 0 (a bool).  1 <= s <= k <= 32, L >= k,
 // 1 <= h <= 10, tile_rows a power of two up to 32, 1 <= num_tiles < 2^31;
 // the shared memory of one query's state must fit the device.
 int seq_streams(const void* seqs, int B, int L, const void* lens, int k, int s,
                 unsigned long long seed, int64_t num_tiles, int h, int tile_rows, int R, int U,
-                void* utile, void* gmask, void* n_valid, void* u_count, void* stream) {
-  if (B <= 0 || k < 1 || k > 32 || s < 1 || s > k || L < k || h < 1 || h > 10 ||
-      tile_rows < 1 || tile_rows > 32 || (tile_rows & (tile_rows - 1)) || num_tiles < 1 ||
-      num_tiles >= (int64_t{1} << 31) || R < 1 || U < 0 ||
-      static_cast<int64_t>(U) * R > 0x7FFFFFFF) {
-    return static_cast<int>(cudaErrorInvalidValue);
+                void* utile, void* gmask, void* n_valid, void* ok, void* stream) {
+  return launch_seq_streams<kSeqPasses>(seqs, B, L, lens, k, s, seed, num_tiles, h, tile_rows,
+                                        R, U, utile, gmask, n_valid, ok, stream);
+}
+
+// seq_streams cut after its first `passes` passes (1 to kSeqPasses), for
+// the pass split of the probe bigsi_tpu_torch/scripts/probe_ah.py: the
+// outputs of a cut build are not the contract's.
+int seq_streams_cut(const void* seqs, int B, int L, const void* lens, int k, int s,
+                    unsigned long long seed, int64_t num_tiles, int h, int tile_rows, int R,
+                    int U, void* utile, void* gmask, void* n_valid, void* ok, int passes,
+                    void* stream) {
+  switch (passes) {
+#define SEQ_CUT(P)                                                                         \
+  case P:                                                                                  \
+    return launch_seq_streams<P>(seqs, B, L, lens, k, s, seed, num_tiles, h, tile_rows, R, \
+                                 U, utile, gmask, n_valid, ok, stream);
+    SEQ_CUT(1) SEQ_CUT(2) SEQ_CUT(3) SEQ_CUT(4) SEQ_CUT(5)
+#undef SEQ_CUT
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t nk = static_cast<size_t>(L - k + 1);
-  const size_t smem = (nk + static_cast<size_t>(L - s + 1)) * sizeof(unsigned long long) +
-                      nk * 3 * sizeof(int32_t) + static_cast<size_t>(L);
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem + 256 > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(seq_streams_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  seq_streams_kernel<<<B, kSeqThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(seqs), L, static_cast<const int32_t*>(lens), k, s, seed,
-      static_cast<unsigned long long>(num_tiles), h, tile_rows, R, U,
-      static_cast<int32_t*>(utile), static_cast<int64_t*>(gmask),
-      static_cast<int32_t*>(n_valid), static_cast<int32_t*>(u_count));
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* lookup_error_string(int code) {

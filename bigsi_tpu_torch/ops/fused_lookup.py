@@ -26,7 +26,7 @@
   of ``scripts/microbench.py:233`` (S1).
 * ``tile_counts(..., exact=False)`` launches kernel B's counts-only
   build, the k2 stage of ``scripts/bisect_kernel.py:49`` (S3).
-* Kernels B and C both run on ``slot_counts_kernel`` (see
+* Kernels A, B and C all run on ``slot_counts_kernel`` (see
   ``csrc/lookup.cu``).
 * :func:`seq_streams` is kernel H.  It replaces the XLA program
   ``bigsi_tpu/ops/prep_jax.py:prep_streams_device``, the seq serving
@@ -38,7 +38,8 @@ A wrapper checks its arguments, then runs the plain version from
 its kernel for tensors on a CUDA device.  It never falls back: a build
 or launch that fails raises.  Each wrapper counts its kernel's launches
 in its ``launches`` attribute; ``tile_counts`` also counts its
-counts-only launches in ``counts_only_launches``.
+counts-only launches in ``counts_only_launches``, and ``classic_counts``
+its launches that split queries over blocks in ``split_launches``.
 """
 
 from __future__ import annotations
@@ -58,6 +59,10 @@ MAX_RUN = 4095  # slots of one grouped entry that fit the kernels' staging
 MAX_COLS_TILE_ROWS = 32  # the widest cols element is 32 bits
 COLS_DTYPES = (torch.uint8, torch.int16, torch.int32)
 ROWS_IN_FLIGHT = (1, 2, 4, 8, 16, 32)  # gather_rows builds: rows a lane group keeps in flight
+# kernel A's split of a query's k-mers over blocks: two 256-thread blocks
+# share an SM, and a range gives each of a block's 8 warps a group of 8
+BLOCKS_PER_SM = 2
+MIN_RANGE_KMERS = 64
 
 _count_lock = threading.Lock()
 
@@ -65,7 +70,7 @@ _count_lock = threading.Lock()
 def _library() -> ctypes.CDLL:
     lib = load("lookup.cu")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.classic_counts.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, ptr, ptr, ptr]
+    lib.classic_counts.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
     lib.tile_counts.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, ptr, ptr, ptr]
     lib.grouped_tile_counts.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
     lib.pack_tile_cols.argtypes = [ptr, i32, i64, i32, i32, ptr, ptr]
@@ -131,12 +136,25 @@ def launch(fn, device, args, outs, symbol=None, counters=("launches",)):
     return outs
 
 
+def classic_splits(b: int, k: int, w: int, sms: int) -> int:
+    """The ranges kernel A splits each query's k-mers into, one block
+    each: 1 when the B * ceil(W / 32) blocks of one range a query already
+    give each of the card's ``sms`` SMs one, else as many as give each SM
+    BLOCKS_PER_SM blocks, with at least MIN_RANGE_KMERS k-mers a range."""
+    blocks = b * -(-w // 32)
+    if blocks >= sms:
+        return 1
+    return max(1, min(-(-BLOCKS_PER_SM * sms // blocks), k // MIN_RANGE_KMERS))
+
+
 def classic_counts(words: torch.Tensor, row_idx: torch.Tensor, mask: torch.Tensor):
     """Classic layout: per-query hit counts and exact AND.
 
     words int32[m, W] (uint32 bits), row_idx int32[B, K, h] (every id in
     [0, m); padding k-mers may hold any in-range id), mask bool[B, K] ->
-    (counts int32[B, W * 32], exact int32[B, W]).
+    (counts int32[B, W * 32], exact int32[B, W]).  On the card a batch too
+    small to fill it splits each query's k-mers over several blocks
+    (:func:`classic_splits`), counted in ``split_launches``.
     """
     if words.dim() != 2 or row_idx.dim() != 3:
         raise ValueError("words must be [m, W] and row_idx [B, K, h]")
@@ -151,11 +169,20 @@ def classic_counts(words: torch.Tensor, row_idx: torch.Tensor, mask: torch.Tenso
         return count_outputs(words, b, w)
     if not 1 <= h <= MAX_HASHES:
         raise ValueError("classic_counts takes 1..%d rows per k-mer, got %d" % (MAX_HASHES, h))
-    args = (words.data_ptr(), w, row_idx.data_ptr(), mask.data_ptr(), b, k, h)
-    return launch(classic_counts, words.device, args, count_outputs(words, b, w))
+    sms = torch.cuda.get_device_properties(words.device).multi_processor_count
+    splits = classic_splits(b, k, w, sms)
+    if splits == 1:
+        outs, counters = count_outputs(words, b, w), ("launches",)
+    else:  # the blocks of a query add into zero counts and AND into all-ones exact
+        outs = (torch.zeros((b, w * 32), dtype=torch.int32, device=words.device),
+                torch.full((b, w), plain.ALL_ONES, dtype=torch.int32, device=words.device))
+        counters = ("launches", "split_launches")
+    args = (words.data_ptr(), w, row_idx.data_ptr(), mask.data_ptr(), b, k, h, splits)
+    return launch(classic_counts, words.device, args, outs, counters=counters)
 
 
 classic_counts.launches = 0
+classic_counts.split_launches = 0
 
 
 def tile_counts(
@@ -379,8 +406,7 @@ def seq_streams(
     seqs uint8[B, L], lens int32[B] -> (utile int32[B, u_cap], gmask
     int64[B, u_cap, r], n_valid int32[B], ok bool[]): the contract of
     :func:`bigsi_tpu_torch.ops.prep.prep_streams`.  On the card the
-    kernel also counts each query's entries, and ``ok`` is their check
-    against ``u_cap``.
+    kernel writes ``ok`` itself.
     """
     if seqs.dim() != 2:
         raise ValueError("seqs must be [B, L]")
@@ -397,12 +423,12 @@ def seq_streams(
     utile = torch.empty((b, u_cap), dtype=torch.int32, device=dev)
     gmask = torch.empty((b, u_cap, r), dtype=torch.int64, device=dev)
     n_valid = torch.empty(b, dtype=torch.int32, device=dev)
-    u_count = torch.empty(b, dtype=torch.int32, device=dev)
-    if b:
-        args = (seqs.data_ptr(), b, l, lens.data_ptr(), k, s, seed & (2**64 - 1), num_tiles, h,
-                tile_rows, r, u_cap)
-        launch(seq_streams, dev, args, (utile, gmask, n_valid, u_count))
-    return utile, gmask, n_valid, (u_count <= u_cap).all()
+    if not b:
+        return utile, gmask, n_valid, torch.ones((), dtype=torch.bool, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    args = (seqs.data_ptr(), b, l, lens.data_ptr(), k, s, seed & (2**64 - 1), num_tiles, h,
+            tile_rows, r, u_cap)
+    return launch(seq_streams, dev, args, (utile, gmask, n_valid, ok))
 
 
 seq_streams.launches = 0

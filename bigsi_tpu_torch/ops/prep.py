@@ -17,6 +17,8 @@ splits the value into 32-bit halves (:func:`umod`).  The TPU
 workarounds of the JAX version (uint32 pairs, nibble long division,
 one-hot compare-sums, ``PREP_CHUNK``) are not ported; the dedup is a
 stable sort instead of the O(NK^2) pairwise compare.
+:func:`table_dedup` restates kernel H's own dedup (an open-addressing
+table of positions) one insert at a time, in any order.
 """
 
 from __future__ import annotations
@@ -209,3 +211,35 @@ def prep_streams(
         n_valid,
         ok,
     )
+
+
+def table_dedup(codes, order=None, nk=None):
+    """Kernel H's dedup, one insert at a time: forward codes (Python ints,
+    u64 values) of a query's valid k-mers, inserted in ``order`` (a
+    permutation of positions; position order by default) -> (first
+    bool[n], probes).  The table holds 2^b >= 2 * nk slots of positions
+    (nk: the k-mers a row of the batch has room for, at least n), -1
+    empty; an insert probes linearly from the code's multiplicative hash
+    (the top b bits of code * 0x9E3779B97F4A7C15), claims an empty slot,
+    or lowers the slot its code holds to its position.  Position i is a
+    first occurrence exactly when its code's slot ends up holding i,
+    whatever the order; ``probes`` counts the slots the inserts visit."""
+    n = len(codes)
+    bits = max(1, (2 * max(n, nk or 0) - 1).bit_length())
+    table = [-1] * (1 << bits)
+    slot_of = [0] * n
+    probes = 0
+    for i in range(n) if order is None else order:
+        slot = ((codes[i] * 0x9E3779B97F4A7C15) & (2**64 - 1)) >> (64 - bits)
+        while True:
+            probes += 1
+            owner = table[slot]
+            if owner < 0:
+                table[slot] = i
+                break
+            if codes[owner] == codes[i]:
+                table[slot] = min(owner, i)
+                break
+            slot = (slot + 1) & ((1 << bits) - 1)
+        slot_of[i] = slot
+    return [table[slot_of[i]] == i for i in range(n)], probes

@@ -25,12 +25,19 @@ k-mers each), the shape of bench.py.  Phases:
    configs, the engine's safe and tight budgets) and at ragged ones
    (B = 1, lengths 0, below k and k, k = 32 poly-T, k = 15, planted
    repeats, a query beside its reverse complement, num_tiles 2^20 and
-   1, budgets that overflow, 4,096 bytes at B = 8, h = 10), and kernel
+   1, budgets that overflow, 4,096 bytes at B = 8 and 1, h = 10, and the
+   dedup table's hazards: k = 32 poly-A and poly-T whole queries, whose
+   codes are 0 and 2^64 - 1, a 40-mer repeated to 576 bytes, 256
+   identical queries), and kernel
    E agrees with its plain version on every one of those streams,
    overflowed ones included, over random cols of the case's tiles; B's
    and C's bit-plane counters are driven past 2^16 on all-ones words
-   (B's counts of 4,096 in both builds, C's of 80,000) and by masks of
-   rows 32-63 alone; and a mutation check: small blocked/32 and
+   (B's counts of 4,096 in both builds, C's of 80,000, A's of 70,000 in
+   one query) and by masks of rows 32-63 alone; kernel A splits single
+   queries and pairs (B 1 and 2, K 512 and 20,000) over blocks and a
+   batch of 256 not, at h 1, 3, 5 and 8 (past the 4 rows read ahead),
+   with half- and all-padding queries and K = 0; and a mutation check:
+   small blocked/32 and
    minimizer/64 indexes on the card, merged and then overwritten in one
    colour, give the host engine's results on a rebuilt engine;
 4.-8. five indexes, each an in-memory index of random rows at the bit
@@ -58,14 +65,20 @@ k-mers each), the shape of bench.py.  Phases:
 9. times, each beside the GPU's name and power limit: search_batch
    latency and queries/s for 256 queries, split inside each call by the
    facade's timers into the host's part, the engine and result
-   building; on the cols indexes once on the seq path and once on the
-   k-mer path (the seq arm turned off on the engine instance); each
+   building, on the seq path also by the engine's spans (copies in,
+   kernels H and E up to the ok read, counts back); on the cols indexes
+   once on the seq path and once on the k-mer path (the seq arm turned
+   off on the engine instance); each
    kernel beside its plain version on the inputs the facade gave the
    engine: kernel H on the facade's own bytes, kernel E on H's streams
    and on the native prep's, kernel C on H's streams over the row-major
    words, with E's and C's bounds, GB/s and shares of bound; kernel D
    once on the full-size matrix, and kernel C on the minimizer/16
-   native prep streams;
+   native prep streams; then (bigsi_tpu_torch.scripts.probe_ah) kernel A
+   on the classic index's matrix at B = 256 and at single queries of 512
+   and 20,000 k-mers, the classic index's single search of a 542 bp and
+   a 20 kb query, and kernel H at B = 256, L = 576 (both cols configs)
+   and B = 8, L = 4,096: wrapper, kernel alone and each pass;
 10. probes: the three probe entry points of bigsi_tpu_torch.scripts
    (probe_multidma, bisect, microbench) run in-process over the
    blocked/32 index's resident words (tile_rows 32: 4 KB tiles; S2 views
@@ -78,7 +91,8 @@ k-mers each), the shape of bench.py.  Phases:
    tile_rows 8 to 64, all-padding queries, B or K of 0).  Then the launch
    counts are set to 0 and the entry points run: the S2 gather (its
    default shape, then 128 B, 512 B and 4 KB rows at kernel B's 50 MB per
-   batch), the bisection's kernel / compile / size subcommands and every
+   batch, then 128 B rows drawn from the first 32 MB, 512 MB and 3.2 GB
+   of the matrix), the bisection's kernel / compile / size subcommands and every
    microbench case, each kernel checked against its plain version and
    timed beside it, pallas-work (kernel C over the pre-gathered tiles)
    checked equal to kernel C over the words; kernels F, G, B (both
@@ -130,7 +144,7 @@ DEVICE = "cuda"
 HEADLINE_R, HEADLINE_RUN = 20, 10
 DEFAULT_R, DEFAULT_RUN = 6, 6
 SOURCE = "bigsi_tpu_torch/csrc/lookup.cu"
-# the seven kernels: (name, TPU kernels or XLA program it replaces)
+# the eight kernels: (name, TPU kernels or XLA program it replaces)
 KERNELS = (
     ("classic_counts", "bigsi_tpu/index/device_engine.py:89"),
     ("tile_counts", "bigsi_tpu/ops/pallas_lookup.py:203, scripts/bisect_kernel.py:49"),
@@ -155,6 +169,9 @@ INDEXES = {
     "minimizer/64": ({"layout": "minimizer", "tile-rows": 64}, ("grouped_tile_counts",)),
 }
 HEADLINE = "minimizer/16"
+# the engine's spans inside counts_batch_kmers and counts_batch_seqs
+SPANS = ("engine.kmer_prep", "engine.kmer_counts", "engine.seq_in", "engine.seq_kernels",
+         "engine.seq_out")
 PROBE_INDEX = "blocked/32"  # whose resident words the probes of phase 10 read
 PROBE_KERNELS = ("gather_rows", "tile_xor", "tile_counts", "grouped_tile_counts")
 # the cols indexes, with their r: the seq arm (kernels H and E) serves
@@ -242,9 +259,9 @@ def bound_bytes(name: str, *args) -> int:
         words, tile, valid, tile_rows = args
         out = tile.shape[0] * tile_rows * words.shape[1] * 4
         return int(valid.sum()) * tile_rows * words.shape[1] * 4 + nbytes(tile, valid) + out
-    if name == "seq_streams":  # outs: utile, gmask, n_valid; and u_count int32[B]
+    if name == "seq_streams":  # outs: utile, gmask, n_valid; and the ok byte
         seqs, lens, outs = args
-        return nbytes(seqs, lens, *outs) + 4 * seqs.shape[0]
+        return nbytes(seqs, lens, *outs) + 1
     raise ValueError(name)
 
 
@@ -365,12 +382,19 @@ def phase_kernels(gen, errors: Errors) -> None:
     dev = torch.device(DEVICE)
     cases = 0
 
-    def classic(words, b, k, h, pad_frac, case):
+    def classic(words, b, k, h, pad_frac, case, split=None):
+        """Kernel A; with ``split`` True (False) it must (must not) have
+        split the queries' k-mers over blocks."""
         m = words.shape[0]
         idx = torch.randint(0, m, (b, k, h), generator=gen, device=dev, dtype=torch.int32)
         mask = torch.rand((b, k), generator=gen, device=dev) >= pad_frac
-        errors.compare("classic_counts", fl.classic_counts(words, idx, mask),
-                       plain.batched_counts(words, idx, mask), case)
+        before = fl.classic_counts.split_launches
+        got = fl.classic_counts(words, idx, mask)
+        errors.compare("classic_counts", got, plain.batched_counts(words, idx, mask), case)
+        if split is not None:
+            check((fl.classic_counts.split_launches > before) == split,
+                  "classic_counts %s: split over blocks %s" % (case, split))
+        return got
 
     def tiled(words, b, k, tile_rows, pad_frac, case, low_row=0, both=False):
         """Kernel B; with ``both`` its counts-only build too."""
@@ -403,7 +427,12 @@ def phase_kernels(gen, errors: Errors) -> None:
     # the slice's shapes: the full-size matrix, B = 256, K = 512, h = 3
     words = torch.randint(-2**31, 2**31, (M, W), generator=gen, device=dev,
                           dtype=torch.int32)
-    classic(words, B, 512, H, 0.05, "slice")
+    classic(words, B, 512, H, 0.05, "slice", split=False)
+    # single queries and pairs: each query's k-mers split over blocks
+    for b in (1, 2):
+        for k in (512, 20_000):
+            classic(words, b, k, H, 0.0 if b == 1 else 0.3, "B=%d K=%d" % (b, k), split=True)
+            cases += 1
     tiled(words, B, 512, 32, 0.05, "slice")
     utile, gmask = streams(words, B, 512, 64, DEFAULT_R, 0.05, DEFAULT_RUN)
     grouped(words, None, utile, gmask, 64, "slice tile_rows=64 R=6 U=%d" % utile.shape[1])
@@ -435,6 +464,13 @@ def phase_kernels(gen, errors: Errors) -> None:
                                 "all ones W=%d tile_rows=%d U=4000 R=20" % (w, tile_rows))
             check(bool((counts == 80_000).all()), "kernel C counts every one of 80,000 slots")
             cases += 3
+        # a 70 kb assembly as one query: kernel A's counts of 70,000 k-mers,
+        # past 2^16, added over the split's blocks
+        counts, exact = classic(ones, 1, 70_000, H, 0.0, "all ones W=%d B=1 K=70000" % w,
+                                split=True)
+        check(bool((counts == 70_000).all()) and bool((exact == -1).all()),
+              "kernel A counts every one of 70,000 k-mers")
+        cases += 1
         words = torch.randint(-2**31, 2**31, (64 * 3001, w), generator=gen, device=dev,
                               dtype=torch.int32)
         case = "rows 32-63 W=%d tile_rows=64" % w
@@ -473,14 +509,20 @@ def phase_kernels(gen, errors: Errors) -> None:
                         "W=%d tile_rows=%d B=%d U=%d R=%d pad=%.1f" % (w, tile_rows, b, u, r, pad))
                 cases += 1
             if tile_rows == 32:
+                # h 5 and 8 read rows past the 4 read ahead; B = 1 and 2
+                # split, all-padding ones too
                 for b, k, h, pad in ((5, 700, 3, 0.3), (1, 1, 1, 0.0), (3, 0, 3, 0.0),
-                                     (2, 64, 3, 1.0), (2, 3000, 3, 0.1), (4, 200, 1, 0.5)):
+                                     (2, 64, 3, 1.0), (2, 3000, 3, 0.1), (4, 200, 1, 0.5),
+                                     (3, 300, 5, 0.5), (2, 1000, 8, 0.2), (1, 5000, 5, 0.0),
+                                     (1, 3000, 8, 0.5), (1, 2000, 3, 1.0), (1, 0, 3, 0.0)):
                     case = "W=%d B=%d K=%d h=%d pad=%.1f" % (w, b, k, h, pad)
                     classic(words, b, k, h, pad, case)
                     cases += 1
     torch.cuda.synchronize()
     print("phase 3 kernels: all five kernels bit-exact with their plain versions in %d "
-          "cases (slice shapes W=%d m=%d B=%d K=512 h=%d, grouped streams of runs of ~%d "
+          "cases (slice shapes W=%d m=%d B=%d K=512 h=%d; A at B 1 and 2, K 512 and 20,000 "
+          "split over blocks, at all-ones B=1 K=70,000 (counts past 2^16), h 1/3/5/8, "
+          "half- and all-padding, K=0; grouped streams of runs of ~%d "
           "k-mers at R=%d and ~%d at R=%d, D and E at tile_rows 16 and 32; all-ones words "
           "at W 33/64 with B's counts of 4,096 (both builds) and C's of 80,000 (U=4,000 "
           "R=20), masks of rows 32-63 only; ragged W 1/33/64, tile_rows 8/16/32/64 (E on "
@@ -548,6 +590,21 @@ def seq_cases(rng):
                   kw(u_cap=DeviceEngine._seq_u_cap(4096 - K_LEN + 1, 19))))
     cases.append(("h=10 tile_rows 32 r=1", *batch(8, 192, 192), kw(h=10, tile_rows=32, r=1,
                                                                      u_cap=162)))
+    # the dedup table's hazards: the codes 0 and 2^64 - 1 (no code can mark
+    # an empty slot), one code at every position, many copies of few codes
+    poly = np.full((2, 576), ord("A"), np.uint8)
+    poly[1] = ord("T")
+    cases.append(("k=32 poly-A and poly-T whole", poly, np.full(2, 576, np.int32),
+                  kw(k=32, window=11, u_cap=64)))
+    seqs = np.tile(acgt(rng, 40), 15)[None, :576].repeat(4, axis=0)
+    cases.append(("one 40-mer repeated to L=576", seqs, np.full(4, 576, np.int32), kw()))
+    seqs, lens = batch(1, 576, QUERY_LEN)
+    seqs[:, QUERY_LEN:] = ord("A")
+    cases.append(("%d identical queries" % B, seqs.repeat(B, axis=0), lens.repeat(B), kw()))
+    for b in (8, 1):
+        cases.append(("L=4096 random B=%d" % b, *batch(b, 4096, 4096),
+                      kw(u_cap=DeviceEngine._seq_u_cap(4096 - K_LEN + 1, 19))))
+    cases.append(("lens 0, k-1 and k", *batch(3, 576, [0, K_LEN - 1, K_LEN]), kw()))
     return cases
 
 
@@ -587,9 +644,11 @@ def seq_checks(gen, rng, errors: Errors) -> None:
           "gmask, n_valid and ok in %d cases (%d overflow): slice B=%d L=576 at both cols "
           "configs and budgets; B=1, lens 0 / below k / k, k=32 poly-T, k=15, planted repeats "
           "190 B and 3 kb apart, a query beside its reverse complement, num_tiles 2^20 and 1, "
-          "U of 3 and 0, lb=4096 B=8, h=10; cols_counts (kernel E) bit-exact on the streams "
+          "U of 3 and 0, lb=4096 B=8, h=10, k=32 poly-A and poly-T whole, a 40-mer repeated, "
+          "%d identical queries, L=4096 random at B 8 and 1, lens 0 / k-1 / k; cols_counts "
+          "(kernel E) bit-exact on the streams "
           "of all %d, over random cols of each case's tiles"
-          % (len(oks), oks.count(False), B, len(oks)), flush=True)
+          % (len(oks), oks.count(False), B, B, len(oks)), flush=True)
 
 
 MUTATION_M = 1 << 20  # bloom bits of the mutation check's small indexes
@@ -940,7 +999,10 @@ def search_batch_layers(port, seqs, reps: int) -> list[dict]:
     else k-mer extraction, hashing and padding on the host.  Inside
     counts_batch_kmers, the engine's own spans split the native prep
     ("engine.kmer_prep") from copies, kernel and counts back
-    ("engine.kmer_counts").  All in ms."""
+    ("engine.kmer_counts"); inside counts_batch_seqs, the copies in
+    ("engine.seq_in"), kernels H and E up to the ok read
+    ("engine.seq_kernels") and the counts back ("engine.seq_out").  All
+    in ms."""
     from bigsi_tpu_torch import metrics
 
     port.search_batch(seqs, 1.0)
@@ -955,7 +1017,7 @@ def search_batch_layers(port, seqs, reps: int) -> list[dict]:
         results = timers["search.batch_results"]["total_s"] * 1e3
         call = {"search_batch": total, "prep": total - counts - results,
                 "counts": counts, "results": results}
-        for span in ("engine.kmer_prep", "engine.kmer_counts"):
+        for span in SPANS:
             if span in timers:
                 call[span] = timers[span]["total_s"] * 1e3
         calls.append(call)
@@ -1060,13 +1122,15 @@ def phase_cols_times(number: int, gpu: str, name: str, port, seqs, errors: Error
     seq, kmer = median_call(seq_calls), median_call(kmer_calls)
     print("phase %d times %s [%s]: search_batch of %d queries, median of %d calls; seq path "
           "%.3f ms (%.1f queries/s): padding and ACGT gate on the host %.3f ms, engine "
-          "counts_batch_seqs %.3f ms (kernels H and E, the ok read, counts back), result "
+          "counts_batch_seqs %.3f ms (copies in %.3f ms, kernels H and E up to the ok read "
+          "%.3f ms, counts back %.3f ms), result "
           "building %.3f ms; k-mer path (seq arm off) %.3f ms (%.1f queries/s): k-mer "
           "extraction on the host %.3f ms, engine counts_batch_kmers %.3f ms (native prep "
           "%.3f ms, copies + kernel + counts back %.3f ms), result building %.3f ms; seq "
           "path / k-mer path %.4f"
           % (number, name, gpu, B, len(seq_calls), seq["search_batch"],
-             B / seq["search_batch"] * 1e3, seq["prep"], seq["counts"], seq["results"],
+             B / seq["search_batch"] * 1e3, seq["prep"], seq["counts"], seq["engine.seq_in"],
+             seq["engine.seq_kernels"], seq["engine.seq_out"], seq["results"],
              kmer["search_batch"], B / kmer["search_batch"] * 1e3, kmer["prep"], kmer["counts"],
              kmer["engine.kmer_prep"], kmer["engine.kmer_counts"], kmer["results"],
              seq["search_batch"] / kmer["search_batch"]), flush=True)
@@ -1179,6 +1243,41 @@ def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
     print("phase %d memory [%s]: peak %.2f GB allocated on the device"
           % (number, gpu, torch.cuda.max_memory_allocated() / 1e9), flush=True)
     return kernel_ms
+
+
+def phase_probe_ah(number: int, gpu: str, runs, gen, rng) -> None:
+    """Kernels A and H where their designs differ, through the probe
+    bigsi_tpu_torch.scripts.probe_ah: A on the classic index's resident
+    matrix at B = 256 and at single queries of 512 and 20,000 k-mers; the
+    classic index's single search of a 542 bp and a 20 kb query (results
+    equal to the host engine's); H at the seq arm's shapes (B = 256, L =
+    576 at both cols configs; B = 8, L = 4,096), the wrapper beside the
+    kernel alone and the kernel cut after each pass, with bounds."""
+    from bigsi_tpu_torch import BIGSI
+    from bigsi_tpu_torch.scripts import probe_ah
+
+    port, seqs = runs["classic"]
+    a = probe_ah.a_times(port.engine.words, gen, gpu)
+    for (b, k), row in a.items():
+        moved = bound_bytes("classic_counts", *row["args"])
+        print("phase %d kernel A B=%d K=%d [%s]: %.4f ms, bound %.4f ms by bytes (%.1f MB), %.3f "
+              "of bound" % (number, b, k, gpu, row["ms"], bound_ms(moved), moved / 1e6,
+                            bound_ms(moved) / row["ms"]), flush=True)
+    long_query = seqs[0] + random_seq(rng, 20_000 - QUERY_LEN)
+    host = BIGSI(dict(port.config, engine="numpy"))
+    for t in (1.0, 0.7):
+        check(port.search(long_query, t) == host.search(long_query, t),
+              "classic single search of 20 kb at %.1f equals the host's" % t)
+    probe_ah.search_times(port, [seqs[0], long_query], gpu)
+    for case, row in probe_ah.h_times(rng, M, gpu, DEVICE).items():
+        seqs_d, lens_d, kw, outs = row["args"]
+        moved = bound_bytes("seq_streams", seqs_d, lens_d, outs)
+        alone = row["kernel_ms"] or row["ms"]  # the library is called on the card only
+        passes = [round(ms, 4) for ms in row["passes_ms"] or ()]
+        print("phase %d kernel H %s [%s]: wrapper %.4f ms, kernel alone %.4f ms, bound %.4f ms by "
+              "bytes (%.2f MB), %.3f of bound (kernel alone); cumulative ms after each pass %s"
+              % (number, case, gpu, row["ms"], alone, bound_ms(moved), moved / 1e6,
+                 bound_ms(moved) / alone, passes), flush=True)
 
 
 # -- phase 10 -----------------------------------------------------------
@@ -1295,6 +1394,20 @@ def phase_probes(number: int, gpu: str, runs, gen, errors: Errors, fns) -> tuple
         idx = torch.randint(0, rows.shape[0], (n,), generator=gen, device=words.device,
                             dtype=torch.int32)
         probe_multidma.probe(rows, idx, 16, gpu)
+    # random 128 B rows drawn from the first 32 MB, 512 MB and all 3.2 GB
+    # of the matrix: a rate that rises from 3.2 GB to 512 MB is TLB reach,
+    # one that stays is DRAM (32 MB also fits the 50 MB L2, so its repeats
+    # hit there)
+    rows = words.view(-1, 32)
+    n = B * 512 * H
+    for span in (min(32 << 20, rows.shape[0] * 128), min(512 << 20, rows.shape[0] * 128),
+                 rows.shape[0] * 128):
+        idx = torch.randint(0, span // 128, (n,), generator=gen, device=words.device,
+                            dtype=torch.int32)
+        ms = probe_multidma.probe(rows, idx, 16, gpu, plain_baseline=False)["ms"]
+        print("phase %d probes [%s]: %d random 128 B rows from the first %.1f MB of the "
+              "matrix, %.4f ms, %.1f GB/s" % (number, gpu, n, span / 1e6, ms,
+                                               n * 128 / ms / 1e6), flush=True)
     # S3-S5 over the words' first T tiles
     tiles = min(bisect.T, words.shape[0] // bisect.TILE_ROWS)
     s3 = bisect.run_kernel(words, tiles, gpu)
@@ -1371,6 +1484,7 @@ def main() -> None:
             launches[k] += counted[k]
 
     kernel_ms = phase_times(number + 1, gpu, runs, errors)
+    phase_probe_ah(number + 1, gpu, runs, gen, rng)
     probe_ms, counted = phase_probes(number + 2, gpu, runs, gen, errors, fns)
     kernel_ms.update(probe_ms)
     for k in PROBE_KERNELS:

@@ -109,6 +109,103 @@ def test_classic_counts_without_kmers():
     assert (u32(exact) == 0xFFFFFFFF).all()
 
 
+# kernel A's hazards, as chip_smoke.py phase 3 holds the kernel to them:
+# single queries and pairs (split over blocks on the card), h past the 4
+# rows read ahead, half- and all-padding queries, K = 0, W 1, 33 and 64
+CLASSIC_HAZARDS = {
+    "B=1 K=512": (1, 512, 3, 2, 0.0),
+    "B=1 K=20000": (1, 20_000, 3, 2, 0.0),
+    "B=2 K=512": (2, 512, 3, 33, 0.3),
+    "B=2 K=20000": (2, 20_000, 3, 1, 0.3),
+    "h=1 W=64": (3, 200, 1, 64, 0.5),
+    "h=5 W=33": (3, 300, 5, 33, 0.5),
+    "h=8 W=1": (2, 1000, 8, 1, 0.2),
+    "B=1 h=5 W=64": (1, 5000, 5, 64, 0.0),
+    "B=1 h=8 half padding": (1, 3000, 8, 1, 0.5),
+    "B=1 all padding": (1, 2000, 3, 33, 1.0),
+    "all padding W=64": (2, 64, 3, 64, 1.0),
+    "B=1 K=1 W=33": (1, 1, 3, 33, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLASSIC_HAZARDS))
+def test_classic_counts_hazards_match_batched_counts_jnp(case):
+    b, k, h, w, pad = CLASSIC_HAZARDS[case]
+    rng = np.random.default_rng(sorted(CLASSIC_HAZARDS).index(case))
+    words = random_words(rng, 700, w)
+    idx, mask = classic_inputs(rng, 700, b, k, h, pad)
+    counts, exact = fused_lookup.classic_counts(as_torch(words), as_torch(idx), as_torch(mask))
+    want = batched_counts_jnp(jnp.asarray(words), jnp.asarray(idx), jnp.asarray(mask))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want))
+    want_exact = exact_and_reduce_jnp(jax_and_rows(words, idx), jnp.asarray(mask))
+    np.testing.assert_array_equal(u32(exact), np.asarray(want_exact))
+
+
+def jax_and_rows(words, idx):
+    """The JAX package's AND of each k-mer's rows: uint32[B, K, W]."""
+    b, k, h = idx.shape
+    rows = jax_lookup.and_rows_jnp(jnp.asarray(words), jnp.asarray(idx.reshape(b * k, h)))
+    return rows.reshape(b, k, words.shape[1])
+
+
+@pytest.mark.parametrize("b,w", [(1, 1), (1, 33), (2, 64)])
+def test_classic_counts_of_queries_without_kmers(b, w):
+    """K = 0 (the JAX engine answers it with zeros before any device
+    call): zero counts and all-ones exact."""
+    words = as_torch(random_words(np.random.default_rng(w), 64, w))
+    counts, exact = fused_lookup.classic_counts(
+        words, torch.zeros((b, 0, 3), dtype=torch.int32), torch.zeros((b, 0), dtype=torch.bool))
+    assert counts.shape == (b, w * 32) and not counts.any()
+    assert exact.shape == (b, w) and (u32(exact) == 0xFFFFFFFF).all()
+
+
+def test_classic_counts_of_70000_kmers_in_one_query():
+    """A 70 kb assembly as one query over all-ones words: every count is
+    70,000, past 2^16, and exact is all ones."""
+    words = np.full((300, 1), 0xFFFFFFFF, dtype=np.uint32)
+    idx, mask = classic_inputs(np.random.default_rng(7), 300, 1, 70_000, 3, 0.0)
+    counts, exact = fused_lookup.classic_counts(as_torch(words), as_torch(idx), as_torch(mask))
+    want = batched_counts_jnp(jnp.asarray(words), jnp.asarray(idx), jnp.asarray(mask))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want))
+    assert (counts.numpy() == 70_000).all() and (u32(exact) == 0xFFFFFFFF).all()
+
+
+@pytest.mark.parametrize("b,k,w,sms,want", [
+    (256, 512, 32, 132, 1),       # the batch path: one block per (query, chunk)
+    (133, 20_000, 32, 132, 1),
+    (1, 512, 32, 132, 8),         # 64 k-mers a range
+    (1, 20_000, 32, 132, 264),    # two blocks on every SM
+    (2, 512, 32, 132, 8),
+    (1, 20_000, 64, 132, 132),    # two chunks a query
+    (66, 512, 32, 132, 4),
+    (1, 63, 32, 132, 1),
+    (1, 0, 1, 132, 1),
+])
+def test_classic_splits(b, k, w, sms, want):
+    assert fused_lookup.classic_splits(b, k, w, sms) == want
+
+
+@pytest.mark.parametrize("b,k,w", [(1, 20_000, 2), (2, 3000, 33), (3, 700, 64)])
+def test_classic_counts_add_up_over_the_split_ranges(b, k, w):
+    """What the split blocks add (counts) and AND (exact) over the ranges
+    of :func:`classic_splits` equals the whole queries' result."""
+    rng = np.random.default_rng(k)
+    words = as_torch(random_words(rng, 500, w))
+    idx, mask = (as_torch(a) for a in classic_inputs(rng, 500, b, k, 3, 0.3))
+    splits = fused_lookup.classic_splits(b, k, w, 132)
+    assert splits > 1
+    per = -(-k // splits)
+    counts = torch.zeros((b, w * 32), dtype=torch.int32)
+    exact = torch.full((b, w), -1, dtype=torch.int32)
+    for z in range(splits):
+        part = lookup.batched_counts(words, idx[:, z * per:(z + 1) * per],
+                                     mask[:, z * per:(z + 1) * per])
+        counts += part[0]
+        exact &= part[1]
+    whole = fused_lookup.classic_counts(words, idx, mask)
+    assert torch.equal(counts, whole[0]) and torch.equal(exact, whole[1])
+
+
 # -- kernel B: tile_counts ------------------------------------------------
 
 

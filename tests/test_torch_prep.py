@@ -199,6 +199,50 @@ def test_a_kmer_beside_its_reverse_complement_counts_twice():
     assert int(n_valid[0]) == 62 and int(nonzero.numel()) == 62
 
 
+def repeated(rng, b, l, unit):
+    """``b`` copies of one random ``unit``-mer repeated to ``l`` bytes."""
+    return np.tile(rand_seqs(rng, 1, unit)[0], -(-l // unit))[None, :l].repeat(b, axis=0)
+
+
+def identical(rng, b, l):
+    """``b`` copies of one 542 bp query padded with A to ``l`` bytes."""
+    seqs = rand_seqs(rng, 1, l).repeat(b, axis=0)
+    seqs[:, 542:] = ord("A")
+    return seqs
+
+
+# kernel H's dedup table's hazards, as chip_smoke.py phase 3 holds the
+# kernel to them: (seqs, lens, prep arguments, n_valid of every query or None)
+SEQ_HAZARDS = {
+    "k=32 poly-A and poly-T whole": (
+        lambda rng: np.array([[ord("A")] * 576, [ord("T")] * 576], dtype=np.uint8),
+        lambda b: np.full(b, 576), dict(k=32, window=11, u_cap=64), 1),
+    "one 40-mer repeated to L=576": (
+        lambda rng: repeated(rng, 4, 576, 40), lambda b: np.full(b, 576), {}, 40),
+    "256 identical queries": (
+        lambda rng: identical(rng, 256, 576), lambda b: np.full(b, 542), {}, 512),
+    "L=4096 random B=8": (
+        lambda rng: rand_seqs(rng, 8, 4096), lambda b: np.full(b, 4096), dict(u_cap=584), None),
+    "L=4096 random B=1": (
+        lambda rng: rand_seqs(rng, 1, 4096), lambda b: np.full(b, 4096), dict(u_cap=584), None),
+    "lens 0, k-1 and k": (
+        lambda rng: rand_seqs(rng, 3, 576), lambda b: np.array([0, 30, 31]), {}, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEQ_HAZARDS))
+def test_prep_matches_jax_on_dedup_hazards(case):
+    make_seqs, make_lens, kw, distinct = SEQ_HAZARDS[case]
+    rng = np.random.default_rng(sorted(SEQ_HAZARDS).index(case))
+    seqs = make_seqs(rng)
+    lens = make_lens(seqs.shape[0]).astype(np.int32)
+    kw = headline_kw(**kw)
+    assert assert_prep_matches_jax(seqs, lens, **kw)
+    if distinct is not None:
+        n_valid = prep.prep_streams(torch.from_numpy(seqs), torch.from_numpy(lens), **kw)[2]
+        assert n_valid.tolist() == [distinct] * seqs.shape[0]
+
+
 @pytest.mark.parametrize("u_cap", [0, 1, 2, 5])
 def test_overflow_writes_nothing_past_u_cap(u_cap):
     rng = np.random.default_rng(9)
@@ -249,3 +293,50 @@ def test_seq_streams_checks_its_arguments():
             fused_lookup.seq_streams(seqs, lens, **dict(kw, **bad))
     with pytest.raises(ValueError):
         fused_lookup.seq_streams(seqs.to("meta"), lens.to("meta"), **kw)
+
+
+# -- kernel H's dedup table, one insert at a time ---------------------------------
+
+
+def insert_orders(n, rng):
+    """Position order, its reverse, and two shuffles: any order the
+    kernel's threads could insert in."""
+    return [list(range(n)), list(range(n))[::-1]] + [list(rng.permutation(n)) for _ in range(2)]
+
+
+@pytest.mark.parametrize("codes", ["random with repeats", "0 and 2^64 - 1", "one code",
+                                   "colliding homes"])
+def test_table_dedup_finds_first_occurrences_in_any_order(codes):
+    rng = np.random.default_rng(len(codes))
+    n = 700
+    if codes == "random with repeats":
+        vals = [int(v) for v in rng.integers(0, 2**64, size=200, dtype=np.uint64)[
+            rng.integers(0, 200, size=n)]]
+    elif codes == "0 and 2^64 - 1":  # poly-A and poly-T at k = 32
+        vals = [int(v) for v in rng.choice([0, 2**64 - 1], size=n)]
+    elif codes == "one code":
+        vals = [0] * n
+    else:  # codes whose hashes share their top bits: long probe runs
+        vals = [int(i) << 40 for i in rng.integers(0, 300, size=n)]
+    want = [vals.index(v) == i for i, v in enumerate(vals)]
+    for order in insert_orders(n, rng):
+        first, probes = prep.table_dedup(vals, order)
+        assert first == want
+        assert probes >= n
+
+
+def test_table_dedup_matches_prep_streams():
+    """The table's first occurrences are prep_streams' non-duplicates
+    (nonzero masks) on a query with planted repeats."""
+    rng = np.random.default_rng(11)
+    seqs = rand_seqs(rng, 1, 900)
+    seqs[0, 500:700] = seqs[0, 40:240]
+    lens = np.array([900], dtype=np.int32)
+    kw = headline_kw(u_cap=300)
+    fwd = prep.canonical(prep.byte_codes(torch.from_numpy(seqs)),
+                         prep.byte_comp_codes(torch.from_numpy(seqs)), 31)[0][0]
+    codes = [int(v) for v in fwd.numpy().view(np.uint64)]
+    first, probes = prep.table_dedup(codes, list(rng.permutation(len(codes))))
+    assert sum(first) == int(prep.prep_streams(torch.from_numpy(seqs), torch.from_numpy(lens),
+                                               **kw)[2][0])
+    assert probes < 2 * len(codes)

@@ -312,6 +312,8 @@ ENTRY_POINTS = {
                       "--reps", "2", "kernel"],
     "bisect-size": ["bigsi_tpu_torch.scripts.bisect", "--device", "cpu", "--tiles", "256",
                     "--reps", "2", "size", "4", "8"],
+    "probe_ah": ["bigsi_tpu_torch.scripts.probe_ah", "--device", "cpu", "--m", "100000",
+                 "--samples", "40", "--reps", "1"],
 }
 
 

@@ -118,6 +118,25 @@ def test_counts_batch_seqs_matches_the_jax_program():
     assert bool(got[2]) and bool(want[2])
 
 
+def test_counts_batch_seqs_spans_split_the_engine_call():
+    """The engine's spans inside counts_batch_seqs: the copies in, kernels
+    H and E up to the ok read, the counts back; each served batch times
+    each once, inside the facade's engine span, and the results stay the
+    JAX engine's."""
+    from bigsi_tpu_torch import metrics
+
+    config, genomes, rng = make_index("spans")
+    port, jax_ref, _ = port_and_refs(config)
+    queries = [g[11:311] for g in genomes] + [random_seq(rng, 300) for _ in range(2)]
+    metrics.reset()
+    assert port.search_batch(queries, 0.7) == jax_ref.search_batch(queries, 0.7)
+    timers = metrics.snapshot()["timers"]
+    spans = ("engine.seq_in", "engine.seq_kernels", "engine.seq_out")
+    assert [timers[s]["count"] for s in spans] == [1, 1, 1]
+    inside = sum(timers[s]["total_s"] for s in spans)
+    assert inside <= timers["search.batch_counts"]["total_s"]
+
+
 def test_seq_path_duplicate_kmers_distinct_semantics(monkeypatch):
     """A query holding repeated k-mers reports num_kmers = the distinct
     count (the reference's set(kmers)), as the host path does."""
