@@ -475,13 +475,37 @@ int launch_slots(const void* words, int W, const void* tile, const void* mask, i
 // * pack_tile_cols (kernel D) replaces the XLA program
 //   bigsi_tpu/ops/lookup.py:pack_tile_cols, run at engine load
 //   (bigsi_tpu/index/device_engine.py:262-280).  An in-tile bit
-//   transpose: a warp takes (tile, 32-word chunk), stages the tile's
-//   rows of that chunk in shared memory with coalesced reads, then for
-//   each word lets lane s hold row s and builds sample j's column with
-//   one warp ballot over bit j.  Lane j keeps ballot j, so the warp's
-//   32 outputs of a word leave in one coalesced store.  It reads the
-//   matrix once and writes it once (3.2 GB each at m = 2.5e7, 1,024
-//   samples).
+//   transpose that reads the matrix once and writes it once (3.2 GB each
+//   at m = 2.5e7, 1,024 samples), so it is bound by bytes.  Its design
+//   for Hopper:
+//   - A transpose in registers, every bit used.  A thread takes one
+//     item, G = 32 / tile_rows consecutive words of one tile (a word
+//     group), and holds its 32 bit rows: row r = g * tile_rows + s is
+//     row s of word g.  A 32 x 32 bit transpose in registers (5 stages
+//     of 16 masked swaps, about 400 logic ops for 128 bytes) leaves in
+//     register c the column of sample c of all G words, word g in bits
+//     [g * tile_rows, (g + 1) * tile_rows).  At tile_rows 16 and 8 no
+//     bit is padding; the ballots it replaces (96 warp instructions a
+//     word, the lanes past tile_rows idle) bound the kernel by its
+//     instruction rate.
+//   - Bytes in flight.  At tile_rows 8, 16 and 32 (the tile_rows an
+//     index can have; compile-time builds) an item is 128 bytes in, read
+//     as tile_rows loads of G words, and 128 bytes out, and a warp's 32
+//     consecutive items read whole 128-byte row segments of 1-4 tiles
+//     and write 4 KB of cols, one contiguous run.  No loop carries a
+//     dependence between items, so the 4 blocks of 8 warps that fit an
+//     SM at 64 registers a thread keep up to 128 KB of reads in flight.
+//     The grid is persistent: the SM count times the blocks that fit an
+//     SM, striding over the items.
+//   - Wide stores.  A thread's 128 bytes go to the warp's 4 KB of shared
+//     memory (16-byte chunks swizzled by lane, no bank conflict either
+//     way) and leave as 16-byte stores, each warp store one contiguous
+//     512 bytes.
+//   - Chunks.  The function takes any run of whole tiles: the engine
+//     packs each staged chunk of rows into its slice of cols.
+//   Any other tile_rows in 1..32, a W that is not a multiple of G or a
+//   pointer not aligned for the vector accesses takes a generic build:
+//   word loads, the same transpose, element stores.
 // * cols_counts (kernel E) replaces the XLA program
 //   bigsi_tpu/ops/lookup.py:grouped_counts_cols.  Grouped streams in
 //   (entry u of query b: tile utile[b, u] and R slot masks, mask 0 =
@@ -526,39 +550,144 @@ int launch_slots(const void* words, int W, const void* tile, const void* mask, i
 //
 // Offsets into cols are size_t: t * N reaches 1.6e9 elements.
 
-constexpr int kColsWarps = 8;
-constexpr int kColsThreads = 32 * kColsWarps;
+constexpr int kPackWarps = 8;
+constexpr int kPackThreads = 32 * kPackWarps;
 
-// grid (ceil(T / kColsWarps), ceil(W / 32)); warp i of block x takes
-// tile x * kColsWarps + i and 32-word chunk blockIdx.y.
-template <typename T>
-__global__ void __launch_bounds__(kColsThreads)
-pack_tile_cols_kernel(const unsigned* __restrict__ words, int W, int64_t num_tiles,
-                      int tile_rows, T* __restrict__ cols) {
-  __shared__ unsigned s_rows[kColsWarps][32][33];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kColsWarps + warp;
-  if (t >= num_tiles) return;  // whole warps only: no block-wide sync below
-  const int c = blockIdx.y;
-  const int nw = min(32, W - c * 32);
-  unsigned (*rows)[33] = s_rows[warp];
-  const unsigned* tile = words + static_cast<size_t>(t) * tile_rows * W + c * 32;
-  for (int s = 0; s < tile_rows; ++s) {
-    rows[s][lane] = lane < nw ? tile[static_cast<size_t>(s) * W + lane] : 0u;
-  }
-  __syncwarp();
-  const size_t n_cols = static_cast<size_t>(W) * 32;
-  T* out = cols + static_cast<size_t>(t) * n_cols + static_cast<size_t>(c) * 1024;
-  for (int w = 0; w < nw; ++w) {
-    const unsigned x = lane < tile_rows ? rows[lane][w] : 0u;  // lane s: row s
-    unsigned mine = 0u;
+// In place: bit s of a[c] becomes bit c of the old a[s].  Stage j swaps,
+// in every pair of rows (k, k + j) with bit j clear in k, the columns of
+// row k with bit j set and those of row k + j with bit j clear.
+__device__ __forceinline__ void transpose32(unsigned (&a)[32]) {
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const unsigned col = __ballot_sync(kAllOnes, (x >> j) & 1u);  // bit s = row s
-      if (lane == j) mine = col;
+  for (int j = 16; j > 0; j >>= 1) {
+    const unsigned m = kAllOnes / ((1u << j) + 1u);  // columns with bit j clear
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      if (k & j) continue;
+      const unsigned t = ((a[k] >> j) ^ a[k + j]) & m;
+      a[k + j] ^= t;
+      a[k] ^= t << j;
     }
-    out[w * 32 + lane] = static_cast<T>(mine);
+  }
+}
+
+// tile_rows kTr in {8, 16, 32}, T its cols type (G * sizeof(T) == 4), W a
+// multiple of G, words aligned to G words and cols to 16 bytes.  Item i
+// is word group q = i % (W / G) of tile i / (W / G); its 128 bytes of
+// cols start at byte 128 * i.  A warp takes 32 consecutive items a step.
+template <typename T, int kTr>
+__global__ void __launch_bounds__(kPackThreads)
+pack_tile_cols_kernel(const unsigned* __restrict__ words, int W, int64_t num_tiles,
+                      T* __restrict__ cols) {
+  constexpr int kG = 32 / kTr;
+  static_assert(kG * sizeof(T) == 4, "an item is 128 bytes out");
+  __shared__ uint4 s_out[kPackWarps][256];  // a warp's 4 KB of cols
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint4* stage = s_out[warp];
+  const int64_t groups = W / kG;
+  const int64_t items = num_tiles * groups;
+  uint4* out = reinterpret_cast<uint4*>(cols);
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kPackThreads;
+  for (int64_t base = (static_cast<int64_t>(blockIdx.x) * kPackWarps + warp) * 32; base < items;
+       base += step) {
+    const int64_t i = base + lane;
+    unsigned a[32];
+    if (i < items) {
+      const int64_t t = i / groups;
+      const unsigned* src = words + (t * kTr * W + (i - t * groups) * kG);
+#pragma unroll
+      for (int s = 0; s < kTr; ++s) {
+        const unsigned* row = src + static_cast<size_t>(s) * W;
+        if constexpr (kG == 1) {
+          a[s] = __ldg(row);
+        } else if constexpr (kG == 2) {
+          const uint2 v = __ldg(reinterpret_cast<const uint2*>(row));
+          a[s] = v.x;
+          a[kTr + s] = v.y;
+        } else {
+          const uint4 v = __ldg(reinterpret_cast<const uint4*>(row));
+          a[s] = v.x;
+          a[kTr + s] = v.y;
+          a[2 * kTr + s] = v.z;
+          a[3 * kTr + s] = v.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) a[r] = 0u;
+    }
+    transpose32(a);
+    // the item's 32 words of cols, in memory order: word g's 32 samples,
+    // then word g + 1's
+    unsigned o[32];
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      if constexpr (kTr == 32) {
+        o[c] = a[c];
+      } else if constexpr (kTr == 16) {  // samples 2j, 2j + 1 of word g
+        const int g = c / 16, j = c % 16;
+        o[c] = __byte_perm(a[2 * j], a[2 * j + 1], g ? 0x7632 : 0x5410);
+      } else {  // samples 4j .. 4j + 3 of word g: byte g of each
+        const int g = c / 8, j = c % 8;
+        const unsigned sel = g | (g + 4) << 4;
+        o[c] = __byte_perm(__byte_perm(a[4 * j], a[4 * j + 1], sel),
+                           __byte_perm(a[4 * j + 2], a[4 * j + 3], sel), 0x5410);
+      }
+    }
+    // chunk v of lane l at slot l * 8 + (v ^ (l & 7)): 8 lanes of a
+    // store phase hit 8 distinct 16-byte bank groups, and so do the 8
+    // chunks of one item on the way out
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      stage[lane * 8 + (v ^ (lane & 7))] =
+          make_uint4(o[4 * v], o[4 * v + 1], o[4 * v + 2], o[4 * v + 3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int c = it * 32 + lane;  // 16-byte chunk of the warp's 4 KB
+      const int owner = c >> 3;
+      if (base + owner < items) out[base * 8 + c] = stage[owner * 8 + ((c & 7) ^ (owner & 7))];
+    }
+    __syncwarp();  // the stage is read before the next step writes it
+  }
+}
+
+// Any tile_rows in [1, 32], any W and alignment: item i is word group q
+// = i % ceil(W / G) of tile i / ceil(W / G), G = 32 / tile_rows words
+// (the last group of a row may be short); one item a thread.
+template <typename T>
+__global__ void __launch_bounds__(kPackThreads)
+pack_tile_cols_any_kernel(const unsigned* __restrict__ words, int W, int64_t num_tiles,
+                          int tile_rows, T* __restrict__ cols) {
+  const int G = 32 / tile_rows;
+  const int groups = (W + G - 1) / G;
+  const int64_t items = num_tiles * groups;
+  const unsigned field = tile_rows == 32 ? kAllOnes : (1u << tile_rows) - 1u;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < items;
+       i += step) {
+    const int64_t t = i / groups;
+    const int w0 = static_cast<int>(i - t * groups) * G;
+    const unsigned* tile = words + static_cast<size_t>(t) * tile_rows * W;
+    unsigned a[32];
+    int g = 0, s = 0;  // row r = g * tile_rows + s
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      a[r] = g < G && w0 + g < W ? __ldg(tile + static_cast<size_t>(s) * W + w0 + g) : 0u;
+      if (++s == tile_rows) {
+        s = 0;
+        ++g;
+      }
+    }
+    transpose32(a);
+    T* out = cols + static_cast<size_t>(t) * W * 32;
+    for (int gg = 0; gg < G && w0 + gg < W; ++gg) {
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        out[(w0 + gg) * 32 + c] = static_cast<T>((a[c] >> (gg * tile_rows)) & field);
+      }
+    }
   }
 }
 
@@ -828,12 +957,53 @@ cols_counts_kernel(const T* __restrict__ cols, int W, const int32_t* __restrict_
   }
 }
 
+// The persistent grid of a pack kernel: as many blocks as fit the card at
+// once, or fewer when the items run out first.
+template <typename Kernel>
+int pack_grid(Kernel kernel, int64_t items, int items_per_block, unsigned& grid) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kPackThreads, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t wanted = (items + items_per_block - 1) / items_per_block;
+  grid = static_cast<unsigned>(std::max<int64_t>(
+      1, std::min<int64_t>(wanted, static_cast<int64_t>(sms) * std::max(1, per_sm))));
+  return static_cast<int>(cudaSuccess);
+}
+
+template <typename T, int kTr>
+int launch_pack_fast(const void* words, int W, int64_t num_tiles, void* cols,
+                     cudaStream_t stream) {
+  unsigned grid = 0;
+  const int err = pack_grid(pack_tile_cols_kernel<T, kTr>, num_tiles * (W / (32 / kTr)),
+                            kPackThreads, grid);
+  if (err != 0) return err;
+  pack_tile_cols_kernel<T, kTr><<<grid, kPackThreads, 0, stream>>>(
+      static_cast<const unsigned*>(words), W, num_tiles, static_cast<T*>(cols));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_pack(const void* words, int W, int64_t num_tiles, int tile_rows, void* cols,
                 cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((num_tiles + kColsWarps - 1) / kColsWarps),
-                  (W + 31) / 32);
-  pack_tile_cols_kernel<T><<<grid, kColsThreads, 0, stream>>>(
+  const int g = 32 / tile_rows;
+  // tile_rows 8, 16 and 32 fill their cols type: an item is 128 bytes out
+  const bool fast = tile_rows == 8 * static_cast<int>(sizeof(T)) && W % g == 0 &&
+                    reinterpret_cast<uintptr_t>(words) % (4 * g) == 0 &&
+                    reinterpret_cast<uintptr_t>(cols) % 16 == 0;
+  if (fast) {
+    if constexpr (sizeof(T) == 1) return launch_pack_fast<T, 8>(words, W, num_tiles, cols, stream);
+    if constexpr (sizeof(T) == 2) return launch_pack_fast<T, 16>(words, W, num_tiles, cols, stream);
+    if constexpr (sizeof(T) == 4) return launch_pack_fast<T, 32>(words, W, num_tiles, cols, stream);
+  }
+  unsigned grid = 0;
+  const int err = pack_grid(pack_tile_cols_any_kernel<T>,
+                            num_tiles * ((W + g - 1) / g), kPackThreads, grid);
+  if (err != 0) return err;
+  pack_tile_cols_any_kernel<T><<<grid, kPackThreads, 0, stream>>>(
       static_cast<const unsigned*>(words), W, num_tiles, tile_rows, static_cast<T*>(cols));
   return static_cast<int>(cudaGetLastError());
 }
@@ -1425,10 +1595,11 @@ int grouped_tile_counts(const void* words, int W, const void* utile,
 
 // words uint32[num_tiles * tile_rows, W]; cols [num_tiles, W * 32] of
 // elem_bytes 1, 2 or 4 per element.  tile_rows in [1, 8 * elem_bytes].
+// Any run of whole tiles: pass the pointers of a slice of both.
 int pack_tile_cols(const void* words, int W, int64_t num_tiles, int tile_rows,
                    int elem_bytes, void* cols, void* stream) {
   if (W <= 0 || num_tiles <= 0 || tile_rows < 1 || tile_rows > 8 * elem_bytes ||
-      (num_tiles + kColsWarps - 1) / kColsWarps > 0x7FFFFFFF) {
+      num_tiles > (int64_t{1} << 62) / W) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -5,8 +5,9 @@ search.  Same method surface as
 :class:`bigsi_tpu_torch.index.host_engine.HostEngine` (numpy in, numpy out),
 so it plugs into the facade's engine seam.  The matrix goes to the
 device once, row-major, as ``int32[m_pad, W]`` holding the uint32 bits
-(:func:`load_words`); the tiled layouts zero-pad it to whole tiles, and
-tile ``t`` is rows ``t * tile_rows ... t * tile_rows + tile_rows - 1``.
+(:func:`load_words`), or in the cols layout (:func:`load_cols`); the
+tiled layouts zero-pad it to whole tiles, and tile ``t`` is rows
+``t * tile_rows ... t * tile_rows + tile_rows - 1``.
 
 * classic: kernel A (:func:`~bigsi_tpu_torch.ops.fused_lookup.classic_counts`)
   gathers each k-mer's h rows, ANDs them and counts hits per sample;
@@ -15,9 +16,10 @@ tile ``t`` is rows ``t * tile_rows ... t * tile_rows + tile_rows - 1``.
 * minimizer: consecutive k-mers share tiles, so the per-k-mer streams
   are grouped (:func:`~bigsi_tpu_torch.ops.lookup.build_grouped_streams`:
   one entry per run of a tile, a slot per k-mer).  At tile_rows up to
-  32 the engine derives the cols layout at load with kernel D
-  (:func:`~bigsi_tpu_torch.ops.fused_lookup.pack_tile_cols`), frees the
-  row-major words, and counts with kernel E
+  32 the engine builds the cols layout at load with kernel D
+  (:func:`~bigsi_tpu_torch.ops.fused_lookup.pack_tile_cols`), one chunk
+  of rows at a time, never holding the row-major words, and counts with
+  kernel E
   (:func:`~bigsi_tpu_torch.ops.fused_lookup.cols_counts`); at tile_rows 64
   kernel C (:func:`~bigsi_tpu_torch.ops.fused_lookup.grouped_tile_counts`)
   counts over the row-major words.
@@ -68,7 +70,7 @@ from bigsi_tpu_torch.ops.fused_lookup import (
 )
 
 TILED_LAYOUTS = ("blocked", "minimizer")
-LOAD_CHUNK_ROWS = 1 << 20  # rows per host->device copy in load_words
+LOAD_CHUNK_ROWS = 1 << 20  # rows per host->device copy in load_words and load_cols
 
 # long-query guards of the seq arm, kept equal to the JAX engine's routing
 # (bigsi_tpu/index/device_engine.py): a hard NK ceiling, and a B*NK^2
@@ -134,6 +136,69 @@ def load_words(words: np.ndarray, device, tile_rows: int | None = None) -> torch
     for r0 in range(0, m, LOAD_CHUNK_ROWS):
         chunk = np.array(words[r0 : r0 + LOAD_CHUNK_ROWS]).view(np.int32)
         out[r0 : r0 + chunk.shape[0]].copy_(torch.from_numpy(chunk))
+    return out
+
+
+def load_cols(words: np.ndarray, device, tile_rows: int) -> torch.Tensor:
+    """The JAX package's matrix (numpy uint32[m, W]) -> its cols layout on
+    ``device`` (kernel D's output over the matrix zero-padded to whole
+    tiles), built chunk by chunk so the row-major matrix is never whole
+    on the device.  cols is allocated first; then each chunk of whole
+    tiles (about LOAD_CHUNK_ROWS rows) is copied into a host staging
+    buffer, on to a device staging buffer and packed into its slice of
+    cols.  On CUDA the host buffers are pinned and there are two of each:
+    a copy stream brings chunk i + 1 while the current stream packs chunk
+    i, events ordering each buffer's reuse.  The load's device peak is
+    cols plus two chunks."""
+    if words.ndim != 2 or words.dtype != np.uint32:
+        raise ValueError("words must be uint32 [m, W]")
+    m, w = words.shape
+    num_tiles = -(-m // tile_rows)
+    cols = torch.empty((num_tiles, w * 32), dtype=plain.cols_dtype(tile_rows), device=device)
+    chunk_tiles = max(1, LOAD_CHUNK_ROWS // tile_rows)
+    spans = [(t0, min(num_tiles, t0 + chunk_tiles)) for t0 in range(0, num_tiles, chunk_tiles)]
+    rows = min(num_tiles, chunk_tiles) * tile_rows
+    cuda = cols.device.type == "cuda"
+    slots = 2 if cuda else 1
+    host = [torch.empty((rows, w), dtype=torch.int32, pin_memory=cuda) for _ in range(slots)]
+    if not cuda:
+        for t0, t1 in spans:
+            buf = stage_rows(words, t0 * tile_rows, t1 * tile_rows, host[0])
+            pack_tile_cols(buf, tile_rows, out=cols[t0:t1])
+        return cols
+    with torch.cuda.device(cols.device):
+        dev = [torch.empty((rows, w), dtype=torch.int32, device=cols.device) for _ in range(slots)]
+        compute = torch.cuda.current_stream()
+        copier = torch.cuda.Stream()
+        copied = [torch.cuda.Event() for _ in range(slots)]
+        packed = [torch.cuda.Event() for _ in range(slots)]
+        for i, (t0, t1) in enumerate(spans):
+            k = i % slots
+            if i >= slots:
+                copied[k].synchronize()  # the host buffer's last copy is done
+            buf = stage_rows(words, t0 * tile_rows, t1 * tile_rows, host[k])
+            n = buf.shape[0]
+            with torch.cuda.stream(copier):
+                if i >= slots:
+                    copier.wait_event(packed[k])  # the device buffer's last pack is done
+                dev[k][:n].copy_(buf, non_blocking=True)
+                copied[k].record(copier)
+            compute.wait_event(copied[k])
+            pack_tile_cols(dev[k][:n], tile_rows, out=cols[t0:t1])
+            packed[k].record(compute)
+        compute.wait_stream(copier)
+    return cols
+
+
+def stage_rows(words: np.ndarray, r0: int, r1: int, buf: torch.Tensor) -> torch.Tensor:
+    """Rows [r0, r1) of ``words`` (uint32, rows past its end read as
+    zero) into the first r1 - r0 rows of the int32 staging ``buf``;
+    returns that slice."""
+    out = buf[: r1 - r0]
+    host = out.numpy().view(np.uint32)
+    n = max(0, min(r1, words.shape[0]) - r0)
+    host[:n] = words[r0 : r0 + n]
+    host[n:] = 0
     return out
 
 
@@ -207,17 +272,20 @@ class DeviceEngine:
         # counts_batch_seqs' escalation state: {padded length lb:
         # big-budget batches left before the tight budget is retried}
         self._seq_cap_esc = {}
-        self.words = load_words(
-            np.asarray(matrix.words), self.device, tile_rows if self.tiled else None
-        )
-        if self.words.shape[0] >= 1 << 31:
+        rows = matrix.num_rows
+        if self.tiled:
+            rows = -(-rows // tile_rows) * tile_rows
+        if rows >= 1 << 31:
             raise ValueError("row ids are int32: at most 2**31 - 1 rows")
-        self.cols = None
+        self.words = self.cols = None
         if layout == "minimizer" and plain.cols_dtype(tile_rows) is not None:
-            # the same bits, transposed within each tile: the row-major
-            # copy is freed once the cols exist
-            self.cols = pack_tile_cols(self.words, tile_rows)
-            self.words = None
+            # the same bits, transposed within each tile, packed chunk by
+            # chunk: the row-major matrix is never whole on the device
+            self.cols = load_cols(np.asarray(matrix.words), self.device, tile_rows)
+        else:
+            self.words = load_words(
+                np.asarray(matrix.words), self.device, tile_rows if self.tiled else None
+            )
 
     def _to_device(self, arr: np.ndarray, dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr, dtype=dtype)).to(self.device)

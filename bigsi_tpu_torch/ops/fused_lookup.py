@@ -14,7 +14,8 @@
   ``ops/lookup.py:grouped_counts``.
 * :func:`pack_tile_cols` is kernel D.  It replaces the XLA program
   ``bigsi_tpu/ops/lookup.py:pack_tile_cols``, which the JAX engine runs
-  at load to derive the column-major tile layout of a minimizer index.
+  at load to derive the column-major tile layout of a minimizer index;
+  ``out=`` packs a chunk of tiles into a slice of the cols.
 * :func:`cols_counts` is kernel E.  It replaces the XLA program
   ``bigsi_tpu/ops/lookup.py:grouped_counts_cols`` and adds the exact AND,
   so single queries on a cols engine take the same kernel.
@@ -265,12 +266,17 @@ def grouped_tile_counts(
 grouped_tile_counts.launches = 0
 
 
-def pack_tile_cols(words: torch.Tensor, tile_rows: int) -> torch.Tensor:
+def pack_tile_cols(
+    words: torch.Tensor, tile_rows: int, out: torch.Tensor | None = None
+) -> torch.Tensor:
     """Row-major tiles -> column-major tile columns.
 
     words int32[m_pad, W] with m_pad a multiple of ``tile_rows`` (1..32)
     -> cols[m_pad / tile_rows, W * 32] of ``plain.cols_dtype(tile_rows)``:
     bit s of ``cols[t, n]`` is sample n's bit in row ``t * tile_rows + s``.
+    With ``out`` (contiguous, of that shape and type, on the words'
+    device) the cols are written there and ``out`` is returned: the
+    engine packs each chunk of rows into its slice of one cols tensor.
     """
     if words.dim() != 2:
         raise ValueError("words must be [m_pad, W]")
@@ -280,12 +286,15 @@ def pack_tile_cols(words: torch.Tensor, tile_rows: int) -> torch.Tensor:
             "tile_rows must be in [1, %d] and divide the matrix's %d rows, got %d"
             % (MAX_COLS_TILE_ROWS, words.shape[0], tile_rows)
         )
-    if device_kind(words) == "cpu":
-        return plain.pack_tile_cols(words, tile_rows)
     dtype = plain.cols_dtype(tile_rows)
     m, w = words.shape
     t = m // tile_rows
-    cols = torch.empty((t, w * 32), dtype=dtype, device=words.device)
+    if out is not None:
+        check_tensor("out", out, dtype, (t, w * 32), words.device)
+    if device_kind(words) == "cpu":
+        cols = plain.pack_tile_cols(words, tile_rows)
+        return cols if out is None else out.copy_(cols)
+    cols = torch.empty((t, w * 32), dtype=dtype, device=words.device) if out is None else out
     if t == 0 or w == 0:
         return cols
     args = (words.data_ptr(), w, t, tile_rows, dtype.itemsize)

@@ -33,7 +33,10 @@ k-mers each), the shape of bench.py.  Phases:
    overflowed ones included, over random cols of the case's tiles; B's
    and C's bit-plane counters are driven past 2^16 on all-ones words
    (B's counts of 4,096 in both builds, C's of 80,000, A's of 70,000 in
-   one query) and by masks of rows 32-63 alone; kernel A splits single
+   one query) and by masks of rows 32-63 alone; kernel D at tile_rows
+   1, 5, 8, 12, 16, 31 and 32, W 1, 33 and 64, one tile, 3,001 and
+   100,003 tiles, words and cols off the vector alignment, and packed in
+   chunks of 7 tiles into slices of one cols; kernel A splits single
    queries and pairs (B 1 and 2, K 512 and 20,000) over blocks and a
    batch of 256 not, at h 1, 3, 5 and 8 (past the 4 rows read ahead),
    with half- and all-padding queries and K = 0; and a mutation check:
@@ -46,7 +49,8 @@ k-mers each), the shape of bench.py.  Phases:
    minimizer at tile_rows 16 with w = 19, slot scheme 3, r = 20 (the
    JAX package's headline serving config), minimizer at the default
    tile_rows 32, window and slot scheme (w = 11, scheme 3, r = 6) --
-   both cols indexes run kernel D at engine load, and the seq arm
+   both cols indexes run kernel D at engine load, once per chunk of
+   about 2^20 rows as the engine streams the matrix in, and the seq arm
    (counts_batch_seqs: kernels H and E) serves their all-ACGT batches
    -- and minimizer at tile_rows 64 (kernel C through counts_batch).
    Each runs a single search, a bulk_search of a 256-record FASTA
@@ -60,7 +64,10 @@ k-mers each), the shape of bench.py.  Phases:
    every batch the guard admits, and each fall-back goes to
    counts_batch_kmers.  Every result dict must equal what the facade
    returns on the numpy host engine (``engine: numpy``) on the same
-   index.  The launch counts are set to 0 before each index and read
+   index.  Each index's load, ``BIGSI(config, device)``, prints its wall
+   time and its peak on the device (peak allocation less what was held
+   before); a cols index's peak must stay under its row-major words plus
+   its cols.  The launch counts are set to 0 before each index and read
    after it: its kernels must have run, and no other;
 9. times, each beside the GPU's name and power limit: search_batch
    latency and queries/s for 256 queries, split inside each call by the
@@ -72,8 +79,11 @@ k-mers each), the shape of bench.py.  Phases:
    kernel beside its plain version on the inputs the facade gave the
    engine: kernel H on the facade's own bytes, kernel E on H's streams
    and on the native prep's, kernel C on H's streams over the row-major
-   words, with E's and C's bounds, GB/s and shares of bound; kernel D
-   once on the full-size matrix, and kernel C on the minimizer/16
+   words, with E's and C's bounds, GB/s and shares of bound; kernel D on
+   the full-size matrix (held to the cols the engine packed in chunks,
+   then timed at tile_rows 16, 8 and 32 beside its plain version, its
+   bound and a torch copy_ of the same bytes), and kernel C on the
+   minimizer/16
    native prep streams; then (bigsi_tpu_torch.scripts.probe_ah) kernel A
    on the classic index's matrix at B = 256 and at single queries of 512
    and 20,000 k-mers, the classic index's single search of a 542 bp and
@@ -518,6 +528,7 @@ def phase_kernels(gen, errors: Errors) -> None:
                     case = "W=%d B=%d K=%d h=%d pad=%.1f" % (w, b, k, h, pad)
                     classic(words, b, k, h, pad, case)
                     cases += 1
+    cases += pack_checks(gen, errors)
     torch.cuda.synchronize()
     print("phase 3 kernels: all five kernels bit-exact with their plain versions in %d "
           "cases (slice shapes W=%d m=%d B=%d K=512 h=%d; A at B 1 and 2, K 512 and 20,000 "
@@ -527,8 +538,67 @@ def phase_kernels(gen, errors: Errors) -> None:
           "at W 33/64 with B's counts of 4,096 (both builds) and C's of 80,000 (U=4,000 "
           "R=20), masks of rows 32-63 only; ragged W 1/33/64, tile_rows 8/16/32/64 (E on "
           "uint8, int16 and int32 cols), R 1/6/20, U 7/13/21/37 and 4,000 at R=20 (80,000 "
-          "live slots), all-padding queries, B or K of 0)"
+          "live slots), all-padding queries, B or K of 0; D at tile_rows 1/5/8/12/16/31/32, "
+          "W 1/33/64, T 1, 3,001 and 100,003, misaligned words and cols, and packed in odd "
+          "chunks into slices of one cols)"
           % (cases, W, M, B, H, HEADLINE_RUN, HEADLINE_R, DEFAULT_RUN, DEFAULT_R), flush=True)
+
+
+PACK_TILES = (1, 3001, 100_003)  # kernel D's tile counts in phase 3
+
+
+def pack_checks(gen, errors: Errors) -> int:
+    """Kernel D against its plain version beyond the slice's shapes:
+    tile_rows 8, 16 and 32 (the compile-time builds) and 1, 5, 12 and 31
+    (the generic one), W 1, 33 and 64, one tile, 3,001 tiles and 100,003
+    (neither a multiple of the persistent grid's step), words and cols
+    off the vector alignment (the generic build), and a pack in chunks
+    of 7 tiles into slices of one cols equal to the whole pack; -> the
+    number of cases."""
+    import torch
+
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import lookup as plain
+
+    dev = torch.device(DEVICE)
+    cases = 0
+
+    def rand_words(m, w):
+        return torch.randint(-2**31, 2**31, (m, w), generator=gen, device=dev, dtype=torch.int32)
+
+    def pack(words, tile_rows, case, out=None):
+        nonlocal cases
+        got = fl.pack_tile_cols(words, tile_rows, out=out)
+        errors.compare("pack_tile_cols", (got,), (plain.pack_tile_cols(words, tile_rows),), case)
+        cases += 1
+        return got
+
+    for w in (1, 33, 64):
+        for tile_rows in (1, 5, 8, 12, 16, 31, 32):
+            tiles = PACK_TILES if tile_rows in (8, 16, 32) and w > 1 else PACK_TILES[:2]
+            for t in tiles:
+                pack(rand_words(t * tile_rows, w), tile_rows,
+                     "W=%d tile_rows=%d T=%d" % (w, tile_rows, t))
+    for tile_rows in (8, 16, 32):
+        words = rand_words(3001 * tile_rows, 64)
+        whole = pack(words, tile_rows, "W=64 tile_rows=%d T=3001 whole" % tile_rows)
+        cols = torch.zeros_like(whole)
+        for t0 in range(0, 3001, 7):
+            t1 = min(3001, t0 + 7)
+            fl.pack_tile_cols(words[t0 * tile_rows:t1 * tile_rows], tile_rows, out=cols[t0:t1])
+        check(torch.equal(cols, whole), "kernel D in chunks of 7 tiles equals the whole pack "
+              "at tile_rows %d" % tile_rows)
+        cases += 1
+        # 4 bytes off 16-byte alignment: words, then cols
+        flat = rand_words(3001 * tile_rows * 64 + 1, 1).view(-1)
+        pack(flat[1:].view(-1, 64), tile_rows, "tile_rows=%d misaligned words" % tile_rows)
+        buf = torch.zeros(whole.numel() + 16, dtype=whole.dtype, device=dev)
+        out = buf[16 // whole.element_size() - 1:][:whole.numel()].view(whole.shape)
+        check(out.data_ptr() % 16 != 0, "the cols view is off 16-byte alignment")
+        got = pack(words, tile_rows, "tile_rows=%d misaligned cols" % tile_rows, out=out)
+        check(got.data_ptr() == out.data_ptr() and torch.equal(out, whole),
+              "kernel D into misaligned cols at tile_rows %d" % tile_rows)
+    return cases
 
 
 def acgt(rng, shape) -> np.ndarray:
@@ -852,6 +922,35 @@ def seq_traffic(rng, planted, seqs):
             ("%d x %d bp + 8 x 20 kb" % (B - 8, QUERY_LEN), mixed))
 
 
+PEAK = {"bytes": 0}  # the device's peak allocation over the run, across resets
+
+
+def timed_load(config):
+    """Opens the index on the port's CUDA engine: -> (the facade, {"s":
+    wall time of ``BIGSI(config, device)``, "peak": the most it held on
+    the device at once (peak allocation less what was allocated
+    before), "words" and "cols": the bytes of the tile-padded row-major
+    matrix and of its cols layout})."""
+    import torch
+
+    from bigsi_tpu_torch import BIGSI
+
+    torch.cuda.synchronize()
+    PEAK["bytes"] = max(PEAK["bytes"], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    port = BIGSI(config, device=DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    engine = port.engine
+    tile_rows = engine.tile_rows if engine.tiled else 1
+    words = -(-engine.matrix.num_rows // tile_rows) * tile_rows * engine.matrix.num_words * 4
+    cols = 0 if engine.cols is None else engine.cols.numel() * engine.cols.element_size()
+    return port, {"s": seconds, "peak": peak, "words": words, "cols": cols}
+
+
 def phase_slice(number: int, name: str, gen, rng):
     import yaml
 
@@ -865,10 +964,14 @@ def phase_slice(number: int, name: str, gen, rng):
     seqs = make_queries(rng, planted)
     host = BIGSI(dict(config, engine="numpy"))  # the numpy HostEngine, the reference
     check(type(host.engine).__name__ == "HostEngine", "the reference runs the host engine")
-    port = BIGSI(config, device=DEVICE)
+    port, load = timed_load(config)
     check(type(port.engine).__name__ == "DeviceEngine", "the port runs its CUDA engine")
     cols = name in COLS_INDEXES
     engine = port.engine
+    if cols:  # never the row-major words and the cols at once
+        check(load["peak"] < load["words"] + load["cols"],
+              "%s: the load's peak %d B is under words + cols %d B"
+              % (name, load["peak"], load["words"] + load["cols"]))
     if cols:
         check(engine.run_len == COLS_INDEXES[name] and engine.slot_scheme == 3
               and engine.cols is not None and engine.words is None,
@@ -977,6 +1080,10 @@ def phase_slice(number: int, name: str, gen, rng):
         check(n["counts_batch"] > 0 and n["counts_batch_kmers"] == n["counts_batch_seqs"] == 0,
               "%s: counts_batch served every batch: %s" % (name, n))
         route = "counts_batch"
+    print("phase %d load %s: BIGSI(config, device) %.3f s, load peak %.4f GB on the device "
+          "(row-major words %.4f GB, cols %.4f GB)"
+          % (number, name, load["s"], load["peak"] / 1e9, load["words"] / 1e9,
+             load["cols"] / 1e9), flush=True)
     print("phase %d %s: index of %d samples, m=%d, made in %.1f s; %d result "
           "lists equal the host engine's (search, bulk_search at 1.0 and 0.7 with "
           "%d and %d hits, HTTP 3 GET + 1 POST + 8 concurrent GETs (%d coalesced)%s) "
@@ -1099,7 +1206,7 @@ def phase_cols_times(number: int, gpu: str, name: str, port, seqs, errors: Error
     layer; kernel H beside its plain version on the facade's own bytes,
     kernel E on H's streams and on the native prep's, kernel C on H's
     streams over the row-major words (and, on minimizer/16, kernel D
-    once at full size and C on the native prep's streams)."""
+    at full size, pack_times, and C on the native prep's streams)."""
     import torch
 
     from bigsi_tpu_torch.index.device_engine import kmer_streams_to_device, load_words
@@ -1184,21 +1291,7 @@ def phase_cols_times(number: int, gpu: str, name: str, port, seqs, errors: Error
     if name != HEADLINE:
         return
 
-    # kernel D once on the full-size matrix, held to the cols the engine
-    # built at load and to the plain version; C and E on the native streams
-    cols = fl.pack_tile_cols(words, tile_rows)
-    check(torch.equal(cols, engine.cols), "kernel D repeats the engine's cols")
-    del cols
-    args = (words, tile_rows)
-    errors.compare("pack_tile_cols", (fl.pack_tile_cols(*args),),
-                   (plain.pack_tile_cols(*args),), "full size")
-    d_ms = cuda_ms(lambda: fl.pack_tile_cols(*args), 5, DEVICE)
-    d_plain = cuda_ms(lambda: plain.pack_tile_cols(*args), 2, DEVICE)
-    record(kernel_ms, "pack_tile_cols", d_ms, d_plain, bound_bytes("pack_tile_cols", *args))
-    print("phase %d times pack_tile_cols [%s]: m=%d W=%d tile_rows=%d, %.4f ms vs plain "
-          "PyTorch %.4f ms (%.1f GB/s read + write)"
-          % (number, gpu, M, W, tile_rows, d_ms, d_plain,
-             2 * words.numel() * 4 / d_ms / 1e6), flush=True)
+    pack_times(number, gpu, words, engine, errors, kernel_ms)
     c_args = (words, native[0], native[1], tile_rows)
     c_native = timed_kernel("grouped_tile_counts", fl.grouped_tile_counts,
                             plain.grouped_counts, c_args, errors, "%s native streams" % name)
@@ -1210,6 +1303,39 @@ def phase_cols_times(number: int, gpu: str, name: str, port, seqs, errors: Error
           "cols %.4f ms (cold L2); equal counts and exact"
           % ((number, gpu, name) + tuple(native[1].shape) + (c_native[0], c_native[1],
                                                              e_native[0])), flush=True)
+
+
+def pack_times(number: int, gpu: str, words, engine, errors: Errors, kernel_ms: dict) -> None:
+    """Kernel D on the full-size matrix: at the engine's tile_rows held to
+    the cols the engine built chunk by chunk at load, then at tile_rows
+    16, 8 and 32 held to its plain version and timed beside it, its
+    bound, and a torch device-to-device copy_ of the same bytes (the
+    copy floor: a yardstick, not D's function)."""
+    import torch
+
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import lookup as plain
+    from bigsi_tpu_torch.scripts.timing import cuda_ms
+
+    check(torch.equal(fl.pack_tile_cols(words, engine.tile_rows), engine.cols),
+          "kernel D over the whole matrix repeats the cols the engine packed in chunks")
+    dst = torch.empty_like(words)
+    floor = cuda_ms(lambda: dst.copy_(words), 5, DEVICE)
+    del dst
+    for tile_rows in (16, 8, 32):
+        args = (words, tile_rows)
+        errors.compare("pack_tile_cols", (fl.pack_tile_cols(*args),),
+                       (plain.pack_tile_cols(*args),), "full size tile_rows=%d" % tile_rows)
+        d_ms = cuda_ms(lambda: fl.pack_tile_cols(*args), 5, DEVICE)
+        d_plain = cuda_ms(lambda: plain.pack_tile_cols(*args), 2, DEVICE)
+        moved = bound_bytes("pack_tile_cols", *args)
+        record(kernel_ms, "pack_tile_cols", d_ms, d_plain, moved)
+        print("phase %d times pack_tile_cols [%s]: m=%d W=%d tile_rows=%d, %.4f ms vs plain "
+              "PyTorch %.4f ms; bound %.4f ms by bytes (%.1f MB), %.3f of bound, %.1f GB/s read "
+              "+ write; copy floor (torch copy_ of the same %.1f MB) %.4f ms, D / copy %.3f"
+              % (number, gpu, words.shape[0], words.shape[1], tile_rows, d_ms, d_plain,
+                 bound_ms(moved), moved / 1e6, bound_ms(moved) / d_ms, moved / d_ms / 1e6,
+                 moved / 1e6, floor, d_ms / floor), flush=True)
 
 
 def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
@@ -1241,7 +1367,8 @@ def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
               flush=True)
         print("phase %d calls %s [%s]: %s" % (number, name, gpu, json.dumps(calls)), flush=True)
     print("phase %d memory [%s]: peak %.2f GB allocated on the device"
-          % (number, gpu, torch.cuda.max_memory_allocated() / 1e9), flush=True)
+          % (number, gpu, max(PEAK["bytes"], torch.cuda.max_memory_allocated()) / 1e9),
+          flush=True)
     return kernel_ms
 
 

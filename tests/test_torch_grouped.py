@@ -2,7 +2,8 @@
 
 Grouped streams, kernel C (``grouped_tile_counts``: the contract of the
 Pallas kernels P2 ``grouped_fused`` and P3 ``grouped_fused_v2`` and of
-XLA ``grouped_counts``), kernel D (``pack_tile_cols``) and kernel E
+XLA ``grouped_counts``), kernel D (``pack_tile_cols``, and the cols
+engine's load that packs chunk by chunk) and kernel E
 (``cols_counts``: XLA ``grouped_counts_cols`` plus the exact AND).  The
 same inputs, made from seeded numpy, go through the JAX function and
 through the port's wrapper on CPU tensors, which runs the kernel's plain
@@ -20,6 +21,11 @@ import torch
 from bigsi_tpu import native
 from bigsi_tpu.ops import lookup as jax_lookup
 from bigsi_tpu.ops import pallas_grouped, pallas_lookup
+import bigsi_tpu_torch
+from bigsi_tpu_torch import storage
+from bigsi_tpu_torch.index import device_engine
+from bigsi_tpu_torch.kmers import seq_to_kmers
+from bigsi_tpu_torch.matrix.bitmatrix import BitSliceMatrix
 from bigsi_tpu_torch.ops import fused_lookup
 from bigsi_tpu_torch.ops import lookup
 
@@ -244,7 +250,7 @@ def test_grouped_tile_counts_tile_rows_64_matches_numpy_oracle(w):
 
 
 @pytest.mark.parametrize("w", [1, 32, 33])
-@pytest.mark.parametrize("tile_rows", [8, 16, 32])
+@pytest.mark.parametrize("tile_rows", [1, 3, 5, 8, 12, 16, 24, 31, 32])
 def test_pack_tile_cols_matches_jax(w, tile_rows):
     rng = np.random.default_rng(tile_rows + w)
     num_tiles = 19
@@ -261,6 +267,79 @@ def test_pack_tile_cols_chunks_do_not_change_the_result(monkeypatch):
     whole = lookup.pack_tile_cols(words, 16)
     monkeypatch.setattr(lookup, "PACK_CHUNK_BITS", 16 * 3 * 32 * 4)  # 4 tiles a chunk
     assert torch.equal(lookup.pack_tile_cols(words, 16), whole)
+
+
+def test_pack_tile_cols_into_slices_of_one_cols():
+    """``out=`` packs a run of tiles into its slice of one cols tensor;
+    odd chunks of tiles give the whole pack."""
+    words = as_torch(random_words(np.random.default_rng(4), 16 * 41, 3))
+    whole = fused_lookup.pack_tile_cols(words, 16)
+    cols = torch.zeros_like(whole)
+    for t0 in range(0, 41, 7):
+        t1 = min(41, t0 + 7)
+        got = fused_lookup.pack_tile_cols(words[t0 * 16 : t1 * 16], 16, out=cols[t0:t1])
+        assert got.data_ptr() == cols[t0:t1].data_ptr()
+    assert torch.equal(cols, whole)
+    with pytest.raises(TypeError):
+        fused_lookup.pack_tile_cols(words, 16, out=torch.zeros((41, 96), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        fused_lookup.pack_tile_cols(words, 16, out=torch.zeros((40, 96), dtype=torch.int16))
+
+
+# -- the cols engine's streamed load ---------------------------------------------
+
+
+@pytest.mark.parametrize("chunk_tiles", [1, 3, 1000])
+@pytest.mark.parametrize("tile_rows", [8, 16, 32])
+def test_cols_engine_loads_chunk_by_chunk(monkeypatch, tile_rows, chunk_tiles):
+    """The cols engine packs its load chunk by chunk (chunks of 1 and 3
+    tiles, and one chunk past every tile) into the cols of the whole
+    matrix zero-padded to whole tiles, and never holds the row-major
+    words."""
+    rng = np.random.default_rng(tile_rows * 7 + chunk_tiles)
+    m = tile_rows * 23 + 5  # not a multiple of tile_rows
+    words = random_words(rng, m, 3)
+    monkeypatch.setattr(device_engine, "LOAD_CHUNK_ROWS", tile_rows * chunk_tiles)
+    packs = []
+    real = device_engine.pack_tile_cols
+
+    def spy(w, tr, out=None):
+        packs.append(w.shape[0] // tr)
+        return real(w, tr, out=out)
+
+    monkeypatch.setattr(device_engine, "pack_tile_cols", spy)
+    engine = device_engine.DeviceEngine(
+        BitSliceMatrix(words, 96), device="cpu", layout="minimizer", tile_rows=tile_rows)
+    assert engine.words is None and engine.cols.shape == (24, 96)
+    assert packs == [min(chunk_tiles, 24 - t0) for t0 in range(0, 24, chunk_tiles)]
+    np.testing.assert_array_equal(unsigned(engine.cols),
+                                  jax_lookup.pack_tile_cols_host(words, tile_rows))
+
+
+@pytest.mark.parametrize("chunk_tiles", [1, 3])
+@pytest.mark.parametrize("tile_rows", [8, 16, 32])
+def test_streamed_cols_engine_searches_as_the_host_engine(monkeypatch, tile_rows, chunk_tiles):
+    """A minimizer index of m = 2,051 bits (not a multiple of tile_rows),
+    loaded in chunks of 1 and 3 tiles: search_batch's result dicts equal
+    the numpy host engine's."""
+    rng = np.random.default_rng(tile_rows + chunk_tiles)
+    config = {"storage-engine": "memory",
+              "storage-config": {"filename": "tg-stream-%d-%d" % (tile_rows, chunk_tiles)},
+              "k": 31, "m": 2051, "h": 3, "layout": "minimizer", "tile-rows": tile_rows}
+    storage.get_storage(config).delete_all()
+    genomes = ["".join(rng.choice(list("ACGT"), 300)) for _ in range(6)]
+    blooms = [bigsi_tpu_torch.BIGSI.bloom(config, seq_to_kmers(g, 31)) for g in genomes]
+    monkeypatch.setattr(device_engine, "LOAD_CHUNK_ROWS", tile_rows * chunk_tiles)
+    port = bigsi_tpu_torch.BIGSI.build(config, blooms, ["s%d" % i for i in range(6)],
+                                       device="cpu")
+    assert port.engine.words is None and port.engine.cols is not None
+    host = bigsi_tpu_torch.BIGSI(dict(config, engine="numpy"))
+    queries = [genomes[0], genomes[1][:150], genomes[2][40:240], genomes[3][:100] + "A" * 60]
+    for threshold in (1.0, 0.5):
+        got = port.search_batch(queries, threshold)
+        assert got == host.search_batch(queries, threshold)
+        assert any(got)
+    storage.get_storage(config).delete_all()
 
 
 # -- kernel E: cols_counts ------------------------------------------------------

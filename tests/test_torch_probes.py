@@ -314,6 +314,8 @@ ENTRY_POINTS = {
                     "--reps", "2", "size", "4", "8"],
     "probe_ah": ["bigsi_tpu_torch.scripts.probe_ah", "--device", "cpu", "--m", "100000",
                  "--samples", "40", "--reps", "1"],
+    "probe_pack": ["bigsi_tpu_torch.scripts.probe_pack", "--device", "cpu", "--m", "20000",
+                   "--samples", "40", "--reps", "1"],
 }
 
 
