@@ -65,11 +65,6 @@ def build(config: dict, bloomfilter_filepaths, samples, max_memory=None, device=
         )
     if chunk_size < 1:
         raise ValueError("Max memory must be at least 9/8 * Bloomfilter size in bytes")
-    if num_chunks > 1 and config.get("screen") is not None:
-        raise NotImplementedError(
-            "a memory-capped build of a screened index merges served indexes, "
-            "which bigsi_tpu_torch does not serve yet"
-        )
     index = None
     pairs = list(zip(bloomfilter_filepaths, samples))
     for i, chunk in enumerate(chunks(pairs, chunk_size)):

@@ -24,8 +24,19 @@ This is bigsi_tpu's facade with the port's engine seam: the config's
 * ``numpy``: the host engine;
 * anything else is refused: the JAX engines are not part of the port.
 
-Screened (verified) indexes are built (``bloom``, ``build``) but not
-served yet: opening one raises ``NotImplementedError``.
+A screened (verified) index answers as a classic one (bigsi_tpu's
+two-stage search, :mod:`bigsi_tpu_torch.index.verify`): the config's
+engine runs the minimizer screen over ``screen.bin``, the classic counts
+of the screen's candidate colours are verified from ``rows.bin``.  A
+batch verifies on :class:`~bigsi_tpu_torch.index.device_engine.DeviceVerifier`
+(kernel A on ``device``), staged at the first batch; a single ``search``
+uses it once staged, else the host pass.  Config ``verify-device``: true
+forces it, false disables it, absent engages it on the CUDA engine when
+``rows.bin`` fits the device's free memory (or
+``verify-device-max-bytes`` where set); without it the host pass
+verifies.  On the CPU
+``tests/test_torch_verified.py`` holds this path to bigsi_tpu, on the
+card ``chip_smoke.py``'s verified phase.
 """
 
 from __future__ import annotations
@@ -41,7 +52,13 @@ import numpy as np
 from bigsi_tpu_torch.bloom import BloomFilter
 from bigsi_tpu_torch.constants import DEFAULT_CONFIG, DEFAULT_NPROC
 from bigsi_tpu_torch.graph.metadata import DELETION_SPECIAL_SAMPLE_NAME, SampleMetadata
-from bigsi_tpu_torch.index.device_engine import DeviceEngine
+from bigsi_tpu_torch.index import verify
+from bigsi_tpu_torch.index.device_engine import (
+    DeviceEngine,
+    DeviceVerifier,
+    device_fits,
+    resolve_device,
+)
 from bigsi_tpu_torch.index.host_engine import HostEngine, counts_batch_fallback
 from bigsi_tpu_torch.index.signature import KmerSignatureIndex
 from bigsi_tpu_torch.kmers import (
@@ -123,13 +140,49 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
             self, self.storage,
             engine_factory=engine_factory or engine_factory_for(config, device),
         )
-        if self.screen is not None:
-            raise NotImplementedError(
-                "screened (verified) indexes are not served by "
-                "bigsi_tpu_torch yet"
-            )
+        self.device = device
         self.min_unique_kmers_in_query = MIN_UNIQUE_KMERS_IN_QUERY
         self.scorer = Scorer(self.num_samples)
+        # verified indexes: the classic matrix goes to the device for the
+        # verify when it fits.  Staging is lazy (the first batched
+        # verify): single-query serving never pays the upload.
+        # _rebuild_engines drops the staged copy wherever the matrix
+        # changes.
+        self._want_verifier = False
+        if self.screen is not None:
+            want = config.get("verify-device")
+            self._want_verifier = want is True or (
+                want is None and config.get("engine") is None
+                and self._verifier_fits(config.get("verify-device-max-bytes"))
+            )
+
+    def _verifier_fits(self, max_bytes) -> bool:
+        """Whether rows.bin fits the device beside what it holds now
+        (:func:`~bigsi_tpu_torch.index.device_engine.device_fits`), or
+        under ``verify-device-max-bytes`` where the config sets it; a
+        matrix that does not fit is verified on the host, and says so."""
+        nbytes = self.bitmatrix.words.nbytes
+        if max_bytes is not None:
+            fits = nbytes <= int(max_bytes)
+        else:
+            fits = device_fits(nbytes, resolve_device(self.device))
+        if not fits:
+            logger.warning(
+                "verify-device: rows.bin (%d B) does not fit %s; the verify "
+                "runs on the host", nbytes,
+                "verify-device-max-bytes" if max_bytes is not None else "the device",
+            )
+        return fits
+
+    @property
+    def verifier(self):
+        """The device verifier, staged at the first call that wants it
+        (one thread stages; the others wait for it)."""
+        if self._verifier is None and self._want_verifier:
+            with self._verifier_lock:
+                if self._verifier is None:
+                    self._verifier = DeviceVerifier(self.bitmatrix, device=self.device)
+        return self._verifier
 
     @property
     def kmer_size(self):
@@ -173,8 +226,7 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
 
     @classmethod
     def build(cls, config, bloomfilters, samples, engine_factory=None, device=None):
-        """Write the index; -> it opened on the config's engine, or None
-        for a screened index (built, not served, by the port)."""
+        """Write the index; -> it opened on the config's engine."""
         storage = get_storage(config)
         validate_build_params(bloomfilters, samples)
         with phase("build.metadata"):
@@ -199,8 +251,6 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
             )
         storage.close()
         metrics.incr("build.samples", len(samples))
-        if config.get("screen") is not None:
-            return None
         return cls(config, engine_factory=engine_factory, device=device)
 
     # -- queries ------------------------------------------------------
@@ -218,6 +268,21 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
             # crashes here (UnboundLocalError in unpack_and_sum) — we
             # return no hits instead.
             return []
+        if self.screen is not None and not score:
+            # two-stage verified search: screen (minimizer, the engine) ->
+            # classic verification of the candidate colours (rows.bin).
+            # score=True takes the classic host path below: scoring needs
+            # full per-kmer presence, and the classic engine IS the
+            # verified semantics.
+            min_kmers = math.ceil(num_kmers * threshold)
+            with phase("search.verified"):
+                results = self._verified_filter(uniq, num_kmers, min_kmers,
+                                                threshold)
+            return [
+                r.todict()
+                for r in results
+                if not r.sample_name == DELETION_SPECIAL_SAMPLE_NAME
+            ]
         with phase("search.lookup"):
             row_idx = self.kmer_matrix_to_row_idx(uniq)
             packed = self.engine.and_rows(row_idx)
@@ -291,6 +356,7 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         engine = self.engine
         if (
             not score
+            and self.screen is None
             and self.side is None
             and self.kmer_size <= 32
             and getattr(engine, "supports_seq_batch", lambda: False)()
@@ -334,6 +400,10 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
             inverses.append(inverse if score else None)
             nks.append(uniq.shape[0])
         score_info = list(zip(mats, inverses)) if score else None
+        if self.screen is not None and not score:
+            metrics.incr("search.queries", b)
+            metrics.incr("search.kmers", int(sum(nks)))
+            return self._verified_batch(mats, nks, threshold)
         if self.side is None and getattr(
             engine, "supports_kmer_batch", lambda: False
         )():
@@ -443,6 +513,147 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         metrics.incr("search.queries", b)
         metrics.incr("search.kmers", int(n_valid.sum()))
         return self._batch_results(per_query, counts, threshold, None)
+
+    # -- two-stage verified search (screened indexes) ------------------
+
+    def _screen_candidates(self, scounts, num_kmers, min_kmers):
+        """Colours whose screen count clears the margin-loosened
+        threshold (see index/verify.py for the bound)."""
+        margin = verify.screen_margin(num_kmers, self.config.get("verify-margin"))
+        return np.flatnonzero(
+            scounts[: self.bitmatrix.num_cols] >= max(1, min_kmers - margin)
+        )
+
+    def _verified_results(
+        self, cand, vcounts, c_idx, num_kmers, min_kmers, threshold
+    ):
+        """Result objects from verified counts + always-verified side
+        columns; ordering parity with the classic filters."""
+        keep = vcounts >= min_kmers
+        results = [
+            BigsiQueryResult(
+                colour=int(c),
+                sample_name=self.colour_to_sample(int(c)),
+                num_kmers_found=int(n),
+                num_kmers=num_kmers,
+            )
+            for c, n in zip(cand[keep], vcounts[keep])
+        ]
+        side_pres = self.side_presence(c_idx)
+        if side_pres is not None and side_pres.size:
+            base = self.bitmatrix.num_cols
+            for j, n in enumerate(side_pres.sum(axis=0)):
+                if n >= min_kmers:
+                    results.append(
+                        BigsiQueryResult(
+                            colour=base + j,
+                            sample_name=self.colour_to_sample(base + j),
+                            num_kmers_found=int(n),
+                            num_kmers=num_kmers,
+                        )
+                    )
+        if threshold != 1.0:
+            results.sort(key=lambda x: x.num_kmers_found, reverse=True)
+        return results
+
+    def _verified_filter(self, uniq, num_kmers, min_kmers, threshold):
+        s_idx = self.screen_row_idx(uniq)
+        packed = self.screen_engine.and_rows(s_idx)
+        scounts = self.screen_engine.counts(packed, self.bitmatrix.num_cols)
+        cand = self._screen_candidates(scounts, num_kmers, min_kmers)
+        c_idx = self.kmer_matrix_to_row_idx(uniq)  # classic rows
+        # a single query stages nothing (bigsi_tpu verifies it on the
+        # host); once a batch has staged rows.bin it verifies there too
+        verifier = self._verifier
+        if verifier is not None:
+            vcounts = verifier.counts([c_idx], [cand])[0]
+        else:
+            vcounts = verify.classic_counts_for_colours(
+                self.bitmatrix.words, c_idx, cand
+            )
+        return self._verified_results(
+            cand, vcounts, c_idx, num_kmers, min_kmers, threshold
+        )
+
+    def _verified_batch(self, mats, nks, threshold):
+        """Batched two-stage search: one screen dispatch (the fused
+        k-mer serving path when available), then one verify pass: on the
+        device verifier where there is one, else the host pass."""
+        b = len(mats)
+        h = self.num_hashes
+        n_main = self.bitmatrix.num_cols
+        engine = self.screen_engine
+        if self.side is None and getattr(
+            engine, "supports_kmer_batch", lambda: False
+        )():
+            qstart = np.zeros(b + 1, dtype=np.int64)
+            np.cumsum(nks, out=qstart[1:])
+            kmer_rows = (
+                np.concatenate(mats)
+                if qstart[-1]
+                else np.empty((0, self.kmer_size), dtype=np.uint8)
+            )
+            with phase("search.screen_counts"):
+                scounts = engine.counts_batch_kmers(
+                    kmer_rows, qstart, h, n_main
+                )
+        else:
+            kmax = max(1, max(nks, default=1))
+            idx = np.zeros((b, kmax, h), dtype=np.int64)
+            mask = np.zeros((b, kmax), dtype=bool)
+            for i, uniq in enumerate(mats):
+                if nks[i]:
+                    idx[i, : nks[i]] = self.screen_row_idx(uniq)
+                    mask[i, : nks[i]] = True
+            with phase("search.screen_counts"):
+                if hasattr(engine, "counts_batch"):
+                    scounts = engine.counts_batch(idx, mask, n_main)
+                else:
+                    scounts = counts_batch_fallback(engine, idx, mask, n_main)
+        cands, c_idxs = [], []
+        min_kmers_list = []
+        with phase("search.candidates"):  # and the classic rows of each
+            for i, uniq in enumerate(mats):
+                nk = nks[i]
+                if nk == 0:
+                    cands.append(None)
+                    c_idxs.append(None)
+                    min_kmers_list.append(0)
+                    continue
+                min_kmers = math.ceil(nk * threshold)
+                min_kmers_list.append(min_kmers)
+                cand = self._screen_candidates(scounts[i], nk, min_kmers)
+                cands.append(cand)
+                # staged columns are verified whatever the candidates
+                c_idxs.append(
+                    self.kmer_matrix_to_row_idx(uniq)
+                    if (cand.size or self.side is not None)
+                    else None
+                )
+        verifier = self.verifier
+        with phase("search.verify"):
+            if verifier is not None:
+                vcounts = verifier.counts(c_idxs, cands)
+            else:
+                vcounts = verify.verify_queries(self.bitmatrix.words, c_idxs, cands)
+        with phase("search.batch_results"):
+            out = []
+            for i in range(b):
+                if nks[i] == 0:
+                    out.append([])
+                    continue
+                results = self._verified_results(
+                    cands[i] if cands[i] is not None else np.empty(0, np.int64),
+                    vcounts[i], c_idxs[i], nks[i], min_kmers_list[i], threshold,
+                )
+                out.append(
+                    [
+                        r.todict()
+                        for r in results
+                        if not r.sample_name == DELETION_SPECIAL_SAMPLE_NAME
+                    ]
+                )
+            return out
 
     def _batch_results(self, per_query, counts, threshold, score_info=None):
         # timed beside "search.batch_counts", so one search_batch splits

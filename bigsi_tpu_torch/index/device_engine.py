@@ -36,7 +36,9 @@ library, ``counts_batch_kmers`` serves the other batches straight from
 ASCII k-mers: the threaded native prep builds the grouped
 streams, the next chunk's prep overlapping the current chunk's kernel.
 A single query reduces through its layout's kernel as a batch of one;
-scoring's presence rows come from the plain ops.  PyTorch compiles
+scoring's presence rows come from the plain ops.  A verified index's
+verify runs on :class:`DeviceVerifier` (kernel A over
+``rows.bin``, only the candidates' counts sent back).  PyTorch compiles
 nothing per shape, so no bucketing of K is needed; the seq arm keeps
 the JAX engine's byte and batch buckets, which its guard and its
 per-bucket budgets are defined on.
@@ -57,6 +59,7 @@ from bigsi_tpu_torch.hashing.scheme import (
     default_run_len,
     window_to_s,
 )
+from bigsi_tpu_torch.index.verify import live_queries
 from bigsi_tpu_torch.matrix.bitmatrix import BitSliceMatrix
 from bigsi_tpu_torch.utils.profiling import phase
 from bigsi_tpu_torch.ops import lookup as plain
@@ -119,6 +122,20 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("unsupported device %s" % dev)
     return dev
+
+
+VERIFY_HEADROOM = 1 << 30  # device bytes left beside a staged rows.bin (A's batches)
+
+
+def device_fits(nbytes: int, device: torch.device) -> bool:
+    """Whether ``nbytes`` more fit on ``device`` now with
+    VERIFY_HEADROOM to spare: the free memory CUDA reports plus what torch's
+    allocator holds cached and unused.  The CPU always fits."""
+    if device.type != "cuda":
+        return True
+    free, _ = torch.cuda.mem_get_info(device)
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return nbytes + VERIFY_HEADROOM <= free + cached
 
 
 def load_words(words: np.ndarray, device, tile_rows: int | None = None) -> torch.Tensor:
@@ -524,3 +541,125 @@ class _PackedQuery:
 
     def __init__(self, row_idx: np.ndarray):
         self.row_idx = row_idx
+
+
+class DeviceVerifier:
+    """The classic matrix (``rows.bin``) resident on the card for the
+    VERIFY stage of a verified index: the port of
+    ``bigsi_tpu/index/device_engine.py:DeviceVerifier``, with the result
+    contract of :func:`bigsi_tpu_torch.index.verify.verify_queries`.
+
+    The matrix goes to the device once, row-major, as kernel A reads it
+    (:func:`load_words`).  :meth:`counts_async` runs kernel A over the
+    live queries on the verifier's own CUDA stream, gathers each query's
+    candidate colours out of A's ``[Q, W * 32]`` counts on the card and
+    copies back only those ``Σ|cand|`` counts; it returns without
+    waiting for the device.  On ``device="cpu"`` the same steps run A's
+    plain version."""
+
+    def __init__(self, matrix: BitSliceMatrix, device=None):
+        self.matrix = matrix
+        self.device = resolve_device(device)
+        if matrix.num_rows >= 1 << 31:
+            raise ValueError("row ids are int32: at most 2**31 - 1 rows")
+        self.words = load_words(np.asarray(matrix.words), self.device)
+        self.cuda = self.device.type == "cuda"
+        self.stream = None
+        if self.cuda:
+            self.stream = torch.cuda.Stream(self.device)
+            # the words were copied on the current stream; freeing them
+            # must wait for the verifier's stream too
+            self.words.record_stream(self.stream)
+
+    def _stage(self, row_idx_list, cand_list):
+        """The live queries packed into row ids int32[Q, K_max, h]
+        (padding rows at id 0) and a mask bool[Q, K_max], and the flat
+        int64 index ``j * W * 32 + colour`` of every candidate into A's
+        counts, each in a pinned host buffer on CUDA; -> (live, the
+        candidates a live query, idx, mask, flat), or None when no query
+        is live."""
+        live = live_queries(row_idx_list, cand_list)
+        if not live:
+            return None
+        q = len(live)
+        rows = np.concatenate([row_idx_list[i] for i in live])  # [sum K, h]
+        cands = np.concatenate([np.asarray(cand_list[i], dtype=np.int64) for i in live])
+        lens = np.array([row_idx_list[i].shape[0] for i in live], dtype=np.int64)
+        sizes = np.array([len(cand_list[i]) for i in live], dtype=np.int64)
+        cols = self.matrix.num_words * 32
+        if rows.min() < 0 or rows.max() >= self.matrix.num_rows:
+            raise IndexError("row ids must lie in [0, %d)" % self.matrix.num_rows)
+        if cands.min() < 0 or cands.max() >= cols:
+            raise IndexError("candidate colours must lie in [0, %d)" % cols)
+        idx = torch.empty((q, int(lens.max()), rows.shape[1]), dtype=torch.int32,
+                          pin_memory=self.cuda)
+        mask = torch.empty(idx.shape[:2], dtype=torch.bool, pin_memory=self.cuda)
+        flat = torch.empty(cands.size, dtype=torch.int64, pin_memory=self.cuda)
+        # filled through numpy, a copy a query: torch's threaded fill and
+        # one fancy-indexed scatter of all the rows made this host-side
+        # staging slower than the device work it feeds (PERF.md §6)
+        idx_h, mask_h = idx.numpy(), mask.numpy()
+        idx_h.fill(0)
+        mask_h.fill(False)
+        for j, i in enumerate(live):
+            idx_h[j, : lens[j]] = row_idx_list[i]
+            mask_h[j, : lens[j]] = True
+        flat.numpy()[:] = np.repeat(np.arange(q) * cols, sizes) + cands
+        return live, sizes, idx, mask, flat
+
+    def counts_async(self, row_idx_list, cand_list) -> "_PendingCounts":
+        """Dispatch the verify of the live queries; -> a resolver: call it
+        for the per-query int64 counts aligned with ``cand_list`` (the
+        contract of ``verify_queries``).  On CUDA the staged buffers, kernel
+        A, the candidates' gather and their copy into a pinned host buffer
+        are enqueued on the verifier's stream, after the caller's; nothing
+        here waits on the device."""
+        b = len(cand_list)
+        staged = self._stage(row_idx_list, cand_list)
+        if staged is None:
+            return _PendingCounts(b, [], np.zeros(0, np.int64), (), torch.zeros(0), None)
+        live, sizes, idx, mask, flat = staged
+        if not self.cuda:
+            counts, _ = classic_counts(self.words, idx, mask)
+            got = counts.reshape(-1).index_select(0, flat)
+            return _PendingCounts(b, live, sizes, (), got, None)
+        dev = self.device
+        caller = torch.cuda.current_stream(dev)
+        with torch.cuda.device(dev), torch.cuda.stream(self.stream):
+            self.stream.wait_stream(caller)  # what the caller enqueued before comes first
+            idx_d = idx.to(dev, non_blocking=True)
+            mask_d = mask.to(dev, non_blocking=True)
+            flat_d = flat.to(dev, non_blocking=True)
+            counts, _ = classic_counts(self.words, idx_d, mask_d)
+            got = counts.reshape(-1).index_select(0, flat_d)
+            host = torch.empty(got.shape, dtype=torch.int32, pin_memory=True)
+            host.copy_(got, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return _PendingCounts(b, live, sizes, (idx, mask, flat), host, done)
+
+    def counts(self, row_idx_list, cand_list) -> list:
+        """Synchronous form of :meth:`counts_async`."""
+        return self.counts_async(row_idx_list, cand_list)()
+
+
+class _PendingCounts:
+    """A dispatched verify: ``done()`` says whether the device finished,
+    calling it waits for the event and splits the candidates' counts per
+    query.  It holds the staged and the result buffers until then."""
+
+    def __init__(self, b, live, sizes, staged, host: torch.Tensor, event):
+        self.b, self.live, self.sizes = b, live, sizes
+        self.staged, self.host, self.event = staged, host, event
+
+    def done(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def __call__(self) -> list:
+        if self.event is not None:
+            self.event.synchronize()
+        vals = self.host.numpy().astype(np.int64)
+        out = [np.zeros(0, dtype=np.int64)] * self.b
+        for i, part in zip(self.live, np.split(vals, np.cumsum(self.sizes)[:-1])):
+            out[i] = part
+        return out

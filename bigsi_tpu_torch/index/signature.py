@@ -15,6 +15,7 @@ k-mer batch followed by a fused gather/AND on the selected engine
 from __future__ import annotations
 
 import logging
+import threading
 
 import numpy as np
 
@@ -213,14 +214,21 @@ class KmerSignatureIndex:
                 "run_len": storage.kv.get_integer(SCREEN_RUN_LEN_KEY),
             }
             self.screen_matrix = storage.load_screen()
+        # guards the verifier: built once under concurrent first batches,
+        # dropped before the engines are rebuilt
+        self._verifier_lock = threading.Lock()
         self._rebuild_engines()
 
     def _rebuild_engines(self) -> None:
         """Engines over the current matrices; called wherever a matrix
         changes.  A device engine copies its matrix once, at
         construction, so it must be rebuilt to see a change.  The old
-        engines are dropped first: two device copies of the index are
-        never alive at once."""
+        engines, and a verified index's device copy of its classic
+        matrix (``_verifier``, staged again at the next batched verify),
+        are dropped first: two device copies of the index are never
+        alive at once."""
+        with self._verifier_lock:
+            self._verifier = None
         self.engine = self.screen_engine = None
         if self.screen is None:
             self.engine = _make_engine(
@@ -230,8 +238,8 @@ class KmerSignatureIndex:
             )
             return
         # the configured engine accelerates the SCREEN; the classic
-        # matrix is verified host-side from rows.bin (never staged to
-        # HBM — candidate-word verification reads a sliver of it)
+        # matrix is verified from rows.bin by the facade (the device
+        # verifier where rows.bin is staged, else the host pass)
         self.screen_engine = _make_engine(
             self._engine_factory, self.screen_matrix, "minimizer",
             self.screen["tile_rows"], self.screen["window"],

@@ -43,7 +43,7 @@ k-mers each), the shape of bench.py.  Phases:
    small blocked/32 and
    minimizer/64 indexes on the card, merged and then overwritten in one
    colour, give the host engine's results on a rebuilt engine;
-4.-8. five indexes, each an in-memory index of random rows at the bit
+4.-9. six indexes, each an in-memory index of random rows at the bit
    density of scripts/synth_index.py, drawn on the card, with 4 planted
    samples: classic (kernel A), blocked at tile_rows 32 (kernel B),
    minimizer at tile_rows 16 with w = 19, slot scheme 3, r = 20 (the
@@ -52,7 +52,15 @@ k-mers each), the shape of bench.py.  Phases:
    both cols indexes run kernel D at engine load, once per chunk of
    about 2^20 rows as the engine streams the matrix in, and the seq arm
    (counts_batch_seqs: kernels H and E) serves their all-ACGT batches
-   -- and minimizer at tile_rows 64 (kernel C through counts_batch).
+   -- minimizer at tile_rows 64 (kernel C through counts_batch), and
+   (phase 9) a verified index: classic rows.bin plus a minimizer/16 w = 19
+   screen.bin of the same size with the screen's defaults (scheme 3, r =
+   20), both drawn with the planted blooms' halves.  Its screen runs
+   kernel D at load and kernel E through counts_batch_kmers (the seq arm
+   is gated off for screened indexes); its first batched verify stages
+   rows.bin on the card (the staging time and device peak are printed),
+   and from then on every verify, batched or single, runs on
+   DeviceVerifier (kernel A, only the candidates' counts sent back).
    Each runs a single search, a bulk_search of a 256-record FASTA
    through the port's CLI at thresholds 1.0 and 0.7, and 3 GET, 1 POST
    and a burst of 8 concurrent GETs (coalesced by the server's batcher)
@@ -64,12 +72,14 @@ k-mers each), the shape of bench.py.  Phases:
    every batch the guard admits, and each fall-back goes to
    counts_batch_kmers.  Every result dict must equal what the facade
    returns on the numpy host engine (``engine: numpy``) on the same
-   index.  Each index's load, ``BIGSI(config, device)``, prints its wall
+   index; the verified index's also equal a classic index's holding the
+   same rows.bin (``engine: numpy``).  Each index's load, ``BIGSI(config, device)``, prints its wall
    time and its peak on the device (peak allocation less what was held
    before); a cols index's peak must stay under its row-major words plus
    its cols.  The launch counts are set to 0 before each index and read
-   after it: its kernels must have run, and no other;
-9. times, each beside the GPU's name and power limit: search_batch
+   after it: its kernels must have run, and no other (the verified
+   index: D, E and A);
+10. times, each beside the GPU's name and power limit: search_batch
    latency and queries/s for 256 queries, split inside each call by the
    facade's timers into the host's part, the engine and result
    building, on the seq path also by the engine's spans (copies in,
@@ -88,8 +98,19 @@ k-mers each), the shape of bench.py.  Phases:
    on the classic index's matrix at B = 256 and at single queries of 512
    and 20,000 k-mers, the classic index's single search of a 542 bp and
    a 20 kb query, and kernel H at B = 256, L = 576 (both cols configs)
-   and B = 8, L = 4,096: wrapper, kernel alone and each pass;
-10. probes: the three probe entry points of bigsi_tpu_torch.scripts
+   and B = 8, L = 4,096: wrapper, kernel alone and each pass; the
+   verified index's search_batch at 1.0 and 0.7, split by the facade's
+   timers (host k-mer prep, the screen, candidates and classic hashing,
+   the verify, result building), and at two verify loads (the live
+   queries of one search_batch; bench.py's B = 256, K = 512, 8 random
+   candidates a query) DeviceVerifier held to kernel A's plain version
+   plus the same gather and to the native host pass, counts_async shown
+   to return before the device finishes, the device verify on CUDA
+   events (each call's work queued behind a spin that outlasts its host
+   part: copies in, A, gather, counts back) beside A alone and A's bound,
+   and DeviceVerifier.counts, its staging and the host pass on the host
+   clock;
+11. probes: the three probe entry points of bigsi_tpu_torch.scripts
    (probe_multidma, bisect, microbench) run in-process over the
    blocked/32 index's resident words (tile_rows 32: 4 KB tiles; S2 views
    them as [6.25e6, 128]).  First kernels F (gather_rows), G (tile_xor)
@@ -169,7 +190,7 @@ KERNELS = (
     ("seq_streams", "bigsi_tpu/ops/prep_jax.py:260"),
 )
 COLS_KERNELS = ("pack_tile_cols", "cols_counts", "seq_streams")
-# the indexes of phases 4-8: name -> (config entries, kernels of its path)
+# the indexes of phases 4-9: name -> (config entries, kernels of its path)
 INDEXES = {
     "classic": ({"layout": "classic"}, ("classic_counts",)),
     "blocked/32": ({"layout": "blocked", "tile-rows": 32}, ("tile_counts",)),
@@ -177,12 +198,16 @@ INDEXES = {
                      COLS_KERNELS),
     "minimizer/32": ({"layout": "minimizer", "tile-rows": 32}, COLS_KERNELS),
     "minimizer/64": ({"layout": "minimizer", "tile-rows": 64}, ("grouped_tile_counts",)),
+    # rows.bin classic, screen.bin minimizer/16 w = 19 (the screen's defaults)
+    "verified": ({"layout": "classic", "screen": "minimizer"},
+                 ("pack_tile_cols", "cols_counts", "classic_counts")),
 }
+VERIFIED = "verified"
 HEADLINE = "minimizer/16"
 # the engine's spans inside counts_batch_kmers and counts_batch_seqs
 SPANS = ("engine.kmer_prep", "engine.kmer_counts", "engine.seq_in", "engine.seq_kernels",
          "engine.seq_out")
-PROBE_INDEX = "blocked/32"  # whose resident words the probes of phase 10 read
+PROBE_INDEX = "blocked/32"  # whose resident words the probes of phase 11 read
 PROBE_KERNELS = ("gather_rows", "tile_xor", "tile_counts", "grouped_tile_counts")
 # the cols indexes, with their r: the seq arm (kernels H and E) serves
 # their unscored all-ACGT batches, counts_batch_kmers the rest
@@ -794,7 +819,7 @@ def phase_mutation(rng) -> None:
                                                     compared), flush=True)
 
 
-# -- phases 4-8 ---------------------------------------------------------
+# -- phases 4-9 ---------------------------------------------------------
 
 
 def random_seq(rng, n: int) -> str:
@@ -808,11 +833,16 @@ def mutate(rng, seq: str, snps: int) -> str:
     return "".join(out)
 
 
+def sample_names() -> list[str]:
+    return ["planted%d" % i for i in range(PLANTED)] + ["synth%d" % i for i in range(PLANTED, N)]
+
+
 def make_index(name: str, gen, rng) -> tuple[dict, list[str]]:
     """An in-memory index of N samples: random rows drawn on the card at
     the density of a bloom of KMERS_PER_SAMPLE k-mers, with the planted
-    samples' blooms in columns 0..PLANTED-1.  Returns its config and the
-    planted sequences."""
+    samples' blooms in columns 0..PLANTED-1 (a verified index: rows.bin
+    and screen.bin, each with its half of the blooms).  Returns its
+    config and the planted sequences."""
     from bigsi_tpu_torch.synth import bloom_density, synth_index
 
     config = {
@@ -821,10 +851,27 @@ def make_index(name: str, gen, rng) -> tuple[dict, list[str]]:
         "k": K_LEN, "m": M, "h": H, **INDEXES[name][0],
     }
     planted = [random_seq(rng, PLANTED_LEN) for _ in range(PLANTED)]
-    names = ["planted%d" % i for i in range(PLANTED)]
-    names += ["synth%d" % i for i in range(PLANTED, N)]
-    synth_index(config, names, planted, bloom_density(H, KMERS_PER_SAMPLE, M), gen)
+    synth_index(config, sample_names(), planted, bloom_density(H, KMERS_PER_SAMPLE, M), gen)
     return config, planted
+
+
+def classic_twin(config: dict):
+    """Oracle (b) of the verified index: the port's facade on the numpy
+    host engine over an in-memory classic index of the same samples that
+    holds the verified index's rows.bin (the same matrix, not a copy)."""
+    from bigsi_tpu_torch import BIGSI
+    from bigsi_tpu_torch.graph.metadata import SampleMetadata
+    from bigsi_tpu_torch.index.signature import persist_index_params
+    from bigsi_tpu_torch.storage import get_storage
+
+    twin = {k: v for k, v in config.items() if k != "screen"}
+    twin["storage-config"] = {"filename": config["storage-config"]["filename"] + "-classic"}
+    store = get_storage(twin)
+    store.delete_all()
+    persist_index_params(store.kv, M, H)
+    SampleMetadata(store.kv).add_samples(sample_names())
+    store.save_matrix(get_storage(config).load_matrix())
+    return BIGSI(dict(twin, engine="numpy"))
 
 
 def make_queries(rng, planted) -> list[str]:
@@ -925,30 +972,50 @@ def seq_traffic(rng, planted, seqs):
 PEAK = {"bytes": 0}  # the device's peak allocation over the run, across resets
 
 
-def timed_load(config):
-    """Opens the index on the port's CUDA engine: -> (the facade, {"s":
-    wall time of ``BIGSI(config, device)``, "peak": the most it held on
-    the device at once (peak allocation less what was allocated
-    before), "words" and "cols": the bytes of the tile-padded row-major
-    matrix and of its cols layout})."""
+def on_device(fn):
+    """Runs ``fn()``: -> (its result, its wall time in s, the most it held
+    on the device at once: peak allocation less what was allocated
+    before)."""
     import torch
-
-    from bigsi_tpu_torch import BIGSI
 
     torch.cuda.synchronize()
     PEAK["bytes"] = max(PEAK["bytes"], torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    port = BIGSI(config, device=DEVICE)
+    out = fn()
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() - before
-    engine = port.engine
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - before
+
+
+def timed_load(config):
+    """Opens the index on the port's CUDA engine: -> (the facade, {"s":
+    wall time of ``BIGSI(config, device)``, "peak": what it held on the
+    device, "words" and "cols": the bytes of the tile-padded row-major
+    matrix and of its cols layout}); a verified index's are its screen's."""
+    from bigsi_tpu_torch import BIGSI
+
+    port, seconds, peak = on_device(lambda: BIGSI(config, device=DEVICE))
+    engine = port.screen_engine if port.screen is not None else port.engine
     tile_rows = engine.tile_rows if engine.tiled else 1
     words = -(-engine.matrix.num_rows // tile_rows) * tile_rows * engine.matrix.num_words * 4
     cols = 0 if engine.cols is None else engine.cols.numel() * engine.cols.element_size()
     return port, {"s": seconds, "peak": peak, "words": words, "cols": cols}
+
+
+def timed_stage(port) -> dict:
+    """Stages a verified index's rows.bin on the card through its lazy
+    ``verifier``: -> {"s": wall time, "peak": what it held on the device,
+    "words": the bytes of rows.bin}."""
+    verifier, seconds, peak = on_device(lambda: port.verifier)
+    check(verifier is not None and verifier.matrix is port.bitmatrix,
+          "the verifier staged the index's rows.bin")
+    return {"s": seconds, "peak": peak, "words": port.bitmatrix.words.nbytes}
+
+
+def queries_in(method: str, args) -> int:
+    """The queries of one recorded engine call."""
+    return len(args[1]) - 1 if method == "counts_batch_kmers" else len(args[0])
 
 
 def phase_slice(number: int, name: str, gen, rng):
@@ -964,20 +1031,42 @@ def phase_slice(number: int, name: str, gen, rng):
     seqs = make_queries(rng, planted)
     host = BIGSI(dict(config, engine="numpy"))  # the numpy HostEngine, the reference
     check(type(host.engine).__name__ == "HostEngine", "the reference runs the host engine")
+    verified = name == VERIFIED
+    # the verified index's oracle (b): a classic index of the same rows.bin
+    oracles = [host, classic_twin(config)] if verified else [host]
+
+    def expect(seq, t):
+        """The host's search, which every other oracle must give too."""
+        out = host.search(seq, t)
+        check(all(o.search(seq, t) == out for o in oracles[1:]),
+              "%s: the oracles agree on search at %.1f" % (name, t))
+        return out
+
+    def expect_batch(batch, t):
+        out = host.search_batch(batch, t)
+        check(all(o.search_batch(batch, t) == out for o in oracles[1:]),
+              "%s: the oracles agree on search_batch at %.1f" % (name, t))
+        return out
+
     port, load = timed_load(config)
-    check(type(port.engine).__name__ == "DeviceEngine", "the port runs its CUDA engine")
+    engine = port.screen_engine if verified else port.engine
+    check(type(engine).__name__ == "DeviceEngine", "the port runs its CUDA engine")
     cols = name in COLS_INDEXES
-    engine = port.engine
-    if cols:  # never the row-major words and the cols at once
+    if cols or verified:  # never the row-major words and the cols at once
         check(load["peak"] < load["words"] + load["cols"],
               "%s: the load's peak %d B is under words + cols %d B"
               % (name, load["peak"], load["words"] + load["cols"]))
-    if cols:
-        check(engine.run_len == COLS_INDEXES[name] and engine.slot_scheme == 3
+        r = COLS_INDEXES.get(name, HEADLINE_R)
+        check(engine.run_len == r and engine.slot_scheme == 3
               and engine.cols is not None and engine.words is None,
-              "%s: cols engine with slot scheme 3 and r = %d" % (name, COLS_INDEXES[name]))
+              "%s: cols engine with slot scheme 3 and r = %d" % (name, r))
+    if cols:
         check(engine.supports_seq_batch() and engine.supports_kmer_batch(),
               "%s: counts_batch_seqs and counts_batch_kmers serve" % name)
+    elif verified:
+        check(engine.supports_kmer_batch() and port._want_verifier and port._verifier is None,
+              "%s: the screen serves counts_batch_kmers; the verifier is wanted, not staged "
+              "at open" % name)
     else:
         check(not engine.supports_seq_batch(), "%s: the seq arm is off" % name)
     compared = 0
@@ -986,10 +1075,13 @@ def phase_slice(number: int, name: str, gen, rng):
     q = planted[0][:QUERY_LEN]
     for t in (1.0, 0.7):
         got = port.search(q, t)
-        check(got == host.search(q, t), "%s search at %.1f equals the host's" % (name, t))
+        check(got == expect(q, t), "%s search at %.1f equals the host's" % (name, t))
         compared += 1
     check(any(r["sample_name"] == "planted0" and r["percent_kmers_found"] == 100.0
               for r in port.search(q, 1.0)), "the planted sample is found")
+    if verified:  # a single search verifies on the host: nothing staged yet
+        check(port._verifier is None, "%s: single searches stage no verifier" % name)
+        stage = timed_stage(port)
 
     # bulk_search of a FASTA through the port's CLI
     WORK.mkdir(parents=True, exist_ok=True)
@@ -1004,7 +1096,7 @@ def phase_slice(number: int, name: str, gen, rng):
             args = make_parser().parse_args(
                 ["bulk_search", str(fasta), "-t", str(t), "-c", str(cfg_path)])
             got = json.loads(run(args, device=DEVICE))
-            want = [result_dict(s, t, r) for s, r in zip(seqs, host.search_batch(seqs, t))]
+            want = [result_dict(s, t, r) for s, r in zip(seqs, expect_batch(seqs, t))]
             check(got == want, "%s bulk_search at %.1f equals the host's" % (name, t))
             n_hits[t] = sum(len(d["results"]) for d in got)
             compared += len(got)
@@ -1022,17 +1114,17 @@ def phase_slice(number: int, name: str, gen, rng):
                 return http_json(base + "?" + urllib.parse.urlencode({"seq": s, "threshold": t}))
 
             for s, t in ((seqs[0], 1.0), (seqs[1], 0.7), (seqs[3], 0.7)):
-                check(get(s, t) == result_dict(s, t, host.search(s, t)),
+                check(get(s, t) == result_dict(s, t, expect(s, t)),
                       "%s GET /search equals the host's" % name)
             got = http_json(base, {"seq": seqs[5], "threshold": 0.7})
-            check(got == result_dict(seqs[5], 0.7, host.search(seqs[5], 0.7)),
+            check(got == result_dict(seqs[5], 0.7, expect(seqs[5], 0.7)),
                   "%s POST /search equals the host's" % name)
             burst = seqs[8:16]
             before = {method: len(c) for method, c in calls.items()}
             with ThreadPoolExecutor(max_workers=len(burst)) as pool:
                 outs = list(pool.map(lambda s: get(s, 0.7), burst))
             for s, got in zip(burst, outs):
-                check(got == result_dict(s, 0.7, host.search(s, 0.7)),
+                check(got == result_dict(s, 0.7, expect(s, 0.7)),
                       "%s coalesced GET /search equals the host's" % name)
             compared += 4 + len(burst)
         finally:
@@ -1042,14 +1134,16 @@ def phase_slice(number: int, name: str, gen, rng):
             thread.join(timeout=60)
         check(not thread.is_alive(), "the HTTP server stopped")
         # queries of the burst that reached the engine in a search_batch
-        coalesced = sum(len(args[0]) for method in ("counts_batch", "counts_batch_seqs")
+        batch_methods = (("counts_batch_kmers",) if verified
+                         else ("counts_batch", "counts_batch_seqs"))
+        coalesced = sum(queries_in(method, args) for method in batch_methods
                         for args, _ in calls[method][before[method]:])
         extra = []
         if cols:  # a non-ACGT batch, long queries and a mixed-length batch
             for what, batch in seq_traffic(rng, planted, seqs):
                 before = {method: len(c) for method, c in calls.items()}
                 got = port.search_batch(batch, 0.7)
-                check(got == host.search_batch(batch, 0.7),
+                check(got == expect_batch(batch, 0.7),
                       "%s search_batch of %s equals the host's" % (name, what))
                 check_seq_batch(name, what, seq_outcomes(
                     calls["counts_batch_seqs"][before["counts_batch_seqs"]:]),
@@ -1076,6 +1170,10 @@ def phase_slice(number: int, name: str, gen, rng):
         route = ("counts_batch_seqs (served %(served)d, overflowed %(overflowed)d, "
                  "refused by the guard %(refused)d" % outcome
                  + "; (B, L) of the batches it returned None for: %s)" % shapes)
+    elif verified:
+        check(n["counts_batch_kmers"] > 0 and n["counts_batch"] == n["counts_batch_seqs"] == 0,
+              "%s: counts_batch_kmers screened every batch: %s" % (name, n))
+        route = "counts_batch_kmers (the screen) and DeviceVerifier (the verify)"
     else:
         check(n["counts_batch"] > 0 and n["counts_batch_kmers"] == n["counts_batch_seqs"] == 0,
               "%s: counts_batch served every batch: %s" % (name, n))
@@ -1084,20 +1182,35 @@ def phase_slice(number: int, name: str, gen, rng):
           "(row-major words %.4f GB, cols %.4f GB)"
           % (number, name, load["s"], load["peak"] / 1e9, load["words"] / 1e9,
              load["cols"] / 1e9), flush=True)
+    if verified:
+        print("phase %d verifier %s: rows.bin staged at the first batched verify in %.3f s, "
+              "device peak %.4f GB (rows.bin %.4f GB)"
+              % (number, name, stage["s"], stage["peak"] / 1e9, stage["words"] / 1e9),
+              flush=True)
     print("phase %d %s: index of %d samples, m=%d, made in %.1f s; %d result "
-          "lists equal the host engine's (search, bulk_search at 1.0 and 0.7 with "
+          "lists equal the host engine's%s (search, bulk_search at 1.0 and 0.7 with "
           "%d and %d hits, HTTP 3 GET + 1 POST + 8 concurrent GETs (%d coalesced)%s) "
           "through %s; engine calls %s"
-          % (number, name, N, M, t_index, compared, n_hits[1.0], n_hits[0.7], coalesced,
+          % (number, name, N, M, t_index, compared,
+             " and a classic index's of the same rows.bin" if verified else "",
+             n_hits[1.0], n_hits[0.7], coalesced,
              "".join(", search_batch of " + e for e in extra), route, json.dumps(n)),
           flush=True)
     return port, seqs
 
 
-# -- phase 9 ------------------------------------------------------------
+# -- phase 10 -----------------------------------------------------------
 
 
-def search_batch_layers(port, seqs, reps: int) -> list[dict]:
+BATCH_PARTS = {"counts": "search.batch_counts", "results": "search.batch_results"}
+# a verified index's search_batch: the screen, candidates and the classic
+# rows of each query, the verify, result building
+VERIFIED_PARTS = {"screen": "search.screen_counts", "candidates": "search.candidates",
+                  "verify": "search.verify", "results": "search.batch_results"}
+
+
+def search_batch_layers(port, seqs, reps: int, threshold: float = 1.0,
+                        parts: dict = BATCH_PARTS) -> list[dict]:
     """Times of `reps` search_batch calls of the whole batch, each split
     by the facade's own timers inside that call: the engine's
     counts_batch, counts_batch_kmers or counts_batch_seqs
@@ -1108,22 +1221,23 @@ def search_batch_layers(port, seqs, reps: int) -> list[dict]:
     ("engine.kmer_prep") from copies, kernel and counts back
     ("engine.kmer_counts"); inside counts_batch_seqs, the copies in
     ("engine.seq_in"), kernels H and E up to the ok read
-    ("engine.seq_kernels") and the counts back ("engine.seq_out").  All
-    in ms."""
+    ("engine.seq_kernels") and the counts back ("engine.seq_out").  A
+    verified index's call splits by ``parts`` = VERIFIED_PARTS.  All in
+    ms."""
     from bigsi_tpu_torch import metrics
 
-    port.search_batch(seqs, 1.0)
+    port.search_batch(seqs, threshold)
     calls = []
     for _ in range(reps):
         metrics.reset()
         t0 = time.perf_counter()
-        port.search_batch(seqs, 1.0)
+        port.search_batch(seqs, threshold)
         total = (time.perf_counter() - t0) * 1e3
         timers = metrics.snapshot()["timers"]
-        counts = timers["search.batch_counts"]["total_s"] * 1e3
-        results = timers["search.batch_results"]["total_s"] * 1e3
-        call = {"search_batch": total, "prep": total - counts - results,
-                "counts": counts, "results": results}
+        call = {"search_batch": total}
+        for key, timer in parts.items():
+            call[key] = timers[timer]["total_s"] * 1e3
+        call["prep"] = total - sum(call[key] for key in parts)
         for span in SPANS:
             if span in timers:
                 call[span] = timers[span]["total_s"] * 1e3
@@ -1338,7 +1452,149 @@ def pack_times(number: int, gpu: str, words, engine, errors: Errors, kernel_ms: 
                  moved / 1e6, floor, d_ms / floor), flush=True)
 
 
-def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
+def verify_inputs(port, seqs, threshold: float):
+    """The live queries' classic rows and candidates that one verified
+    search_batch of ``seqs`` hands its DeviceVerifier."""
+    from bigsi_tpu_torch.index import verify
+
+    verifier = port.verifier
+    seen, real = [], verifier.counts
+
+    def spy(rows, cands):
+        seen.append((rows, cands))
+        return real(rows, cands)
+
+    verifier.counts = spy
+    try:
+        port.search_batch(seqs, threshold)
+    finally:
+        del verifier.counts
+    check(len(seen) == 1, "one verify pass per search_batch, got %d" % len(seen))
+    rows, cands = seen[0]
+    live = verify.live_queries(rows, cands)
+    return [rows[i] for i in live], [cands[i] for i in live]
+
+
+SPIN_CYCLES = 200_000_000  # about 0.1 s of device spin at the H100's clock
+
+
+def queued_ms(counts_async, reps: int, stream) -> float:
+    """Mean device time of the work one ``counts_async()`` enqueues on
+    ``stream`` (copies in, A, gather, counts back), each call started
+    with a cold L2 and queued behind a spin that must outlast its host
+    part (the staging), so the events time the device alone."""
+    import torch
+
+    from bigsi_tpu_torch.scripts.timing import FLUSH_WORDS
+
+    flush = torch.empty(FLUSH_WORDS, dtype=torch.int32, device=DEVICE)
+    total = 0.0
+    with torch.cuda.stream(stream):
+        counts_async()()
+        for _ in range(reps):
+            torch.cuda._sleep(SPIN_CYCLES)
+            spun = torch.cuda.Event()
+            spun.record()
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            pending = counts_async()
+            end.record()
+            check(not spun.query(), "the spin outlasted counts_async's host part")
+            end.synchronize()
+            pending()
+            total += start.elapsed_time(end)
+    return total / reps
+
+
+def verify_load_times(number: int, gpu: str, port, case: str, rows, cands,
+                      errors: Errors) -> None:
+    """One verify load on the verified index's staged rows.bin:
+    DeviceVerifier.counts held to kernel A's plain version plus the same
+    gather and to the native host pass; counts_async returning while the
+    device still works (its stream waits behind a spin on the caller's);
+    the device verify on CUDA events around counts_async (copies in, A,
+    gather, counts back) beside A alone and A's bound; DeviceVerifier.counts,
+    its staging and the host pass on the host clock."""
+    import torch
+
+    from bigsi_tpu_torch.index import verify
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import lookup as plain
+    from bigsi_tpu_torch.scripts.timing import cuda_ms, host_ms
+
+    verifier = port.verifier
+    words = port.bitmatrix.words
+    got = verifier.counts(rows, cands)
+    _, sizes, *staged = verifier._stage(rows, cands)
+    idx, mask, flat = (t.to(verifier.device) for t in staged)
+    plain_got = plain.batched_counts(verifier.words, idx, mask)[0].reshape(-1).index_select(0, flat)
+    kernel_got = fl.classic_counts(verifier.words, idx, mask)[0].reshape(-1).index_select(0, flat)
+    errors.compare("classic_counts", (kernel_got,), (plain_got,), "verify " + case)
+    flat_got = torch.from_numpy(np.concatenate(got))
+    errors.compare("classic_counts", (flat_got,), (plain_got.cpu().long(),),
+                   "DeviceVerifier.counts " + case)
+    host = verify.verify_queries(words, rows, cands)
+    check(all(np.array_equal(g, x) for g, x in zip(got, host)),
+          "DeviceVerifier.counts equals the native host pass (%s)" % case)
+    if verifier.cuda:  # the device's work queued behind about half a second of spin
+        torch.cuda._sleep(1_000_000_000)
+        pending = verifier.counts_async(rows, cands)
+        early = not pending.done()
+        check(early and all(np.array_equal(g, x) for g, x in zip(pending(), host)),
+              "counts_async returned before the device finished (%s)" % case)
+    dev_ms = queued_ms(lambda: verifier.counts_async(rows, cands), 10, verifier.stream)
+    a_ms = cuda_ms(lambda: fl.classic_counts(verifier.words, idx, mask), 20, DEVICE)
+    a_plain = cuda_ms(lambda: plain.batched_counts(verifier.words, idx, mask), 3, DEVICE)
+    stage_ms = host_ms(lambda: verifier._stage(rows, cands), 5)
+    counts_ms = host_ms(lambda: verifier.counts(rows, cands), 5)
+    host_pass = host_ms(lambda: verify.verify_queries(words, rows, cands), 5)
+    moved = bound_bytes("classic_counts", verifier.words, idx, mask)
+    print("phase %d verify %s [%s]: Q=%d live queries, K_max=%d, h=%d, %d candidates (%d counts "
+          "back, %.1f KB); DeviceVerifier.counts %.3f ms on the host clock, of which stage "
+          "(packing into pinned buffers) %.3f ms; device verify (copies in, A, gather, counts "
+          "back) %.4f ms; kernel A "
+          "alone %.4f ms (plain PyTorch %.4f ms), bound %.4f ms by bytes (%.1f MB: %d live "
+          "k-mers x %d rows of %d B), %.3f of bound; host pass %.3f ms (host clock), "
+          "%.2fx DeviceVerifier.counts"
+          % (number, case, gpu, idx.shape[0], idx.shape[1], idx.shape[2],
+             int(sizes.sum()), flat.numel(), flat.numel() * 4 / 1e3,
+             counts_ms, stage_ms, dev_ms,
+             a_ms, a_plain, bound_ms(moved), moved / 1e6, int(mask.sum()),
+             idx.shape[2], verifier.words.shape[1] * 4, bound_ms(moved) / a_ms,
+             host_pass, host_pass / counts_ms),
+          flush=True)
+
+
+def phase_verified_times(number: int, gpu: str, port, seqs, errors: Errors, rng) -> None:
+    """The verified index: search_batch at 1.0 and 0.7 split by the
+    facade's timers, then the two verify loads."""
+    for t in (1.0, 0.7):
+        calls = search_batch_layers(port, seqs, 5, t, VERIFIED_PARTS)
+        mid = median_call(calls)
+        print("phase %d times %s [%s]: search_batch of %d queries at %.1f, median of %d calls "
+              "%.3f ms (%.1f queries/s): host k-mer prep %.3f ms, screen counts_batch_kmers "
+              "%.3f ms (native prep %.3f ms, copies + kernel E + counts back %.3f ms), "
+              "candidates and classic hashing %.3f ms, verify (DeviceVerifier) %.3f ms, "
+              "result building %.3f ms"
+              % (number, VERIFIED, gpu, B, t, len(calls), mid["search_batch"],
+                 B / mid["search_batch"] * 1e3, mid["prep"], mid["screen"],
+                 mid["engine.kmer_prep"], mid["engine.kmer_counts"], mid["candidates"],
+                 mid["verify"], mid["results"]), flush=True)
+        print("phase %d calls %s at %.1f [%s]: %s" % (number, VERIFIED, t, gpu, json.dumps(calls)),
+              flush=True)
+    rows, cands = verify_inputs(port, seqs, 0.7)
+    check(len(rows) >= B // 2, "most of the batch's queries are live: %d" % len(rows))
+    verify_load_times(number, gpu, port, "search_batch's live queries at 0.7", rows, cands,
+                      errors)
+    # bench.py's verify load: B x K random rows, 8 random candidate colours a query
+    rows = [rng.integers(0, M, size=(512, H)).astype(np.int64) for _ in range(B)]
+    cands = [np.unique(rng.integers(0, N, size=8)).astype(np.int64) for _ in range(B)]
+    verify_load_times(number, gpu, port, "bench.py's load B=%d K=512" % B, rows, cands, errors)
+
+
+def phase_times(number: int, gpu: str, runs, errors: Errors, rng) -> dict:
     """-> {kernel: {ms, plain_ms, bound_ms, library_ms}}, each kernel on
     the first index of its path (kernels H and E on minimizer/16's seq
     path)."""
@@ -1348,6 +1604,9 @@ def phase_times(number: int, gpu: str, runs, errors: Errors) -> dict:
     for name, (port, seqs) in runs.items():
         if name in COLS_INDEXES:
             phase_cols_times(number, gpu, name, port, seqs, errors, kernel_ms)
+            continue
+        if name == VERIFIED:
+            phase_verified_times(number, gpu, port, seqs, errors, rng)
             continue
         calls = search_batch_layers(port, seqs, 5)
         mid = median_call(calls)
@@ -1407,7 +1666,7 @@ def phase_probe_ah(number: int, gpu: str, runs, gen, rng) -> None:
                  bound_ms(moved) / alone, passes), flush=True)
 
 
-# -- phase 10 -----------------------------------------------------------
+# -- phase 11 -----------------------------------------------------------
 
 
 def probe_checks(gen, errors: Errors, words) -> int:
@@ -1610,7 +1869,7 @@ def main() -> None:
         for k in own:
             launches[k] += counted[k]
 
-    kernel_ms = phase_times(number + 1, gpu, runs, errors)
+    kernel_ms = phase_times(number + 1, gpu, runs, errors, rng)
     phase_probe_ah(number + 1, gpu, runs, gen, rng)
     probe_ms, counted = phase_probes(number + 2, gpu, runs, gen, errors, fns)
     kernel_ms.update(probe_ms)

@@ -151,18 +151,38 @@ def test_jax_engines_are_refused():
         bigsi_tpu_torch.BIGSI(dict(config, engine="tpu"), device="cpu")
 
 
-def test_screened_index_raises(tmp_path):
+def test_screened_index_opens_and_answers_as_bigsi_tpu(tmp_path):
+    """A screened (verified) index opens on both of the port's engines
+    and answers as bigsi_tpu does on the same directory; it raises only
+    where bigsi_tpu raises: an interior insert, a merge with an
+    unscreened index."""
     config = {
         "storage-engine": "bigsi-tpu", "storage-config": {"filename": str(tmp_path / "v")},
         "k": K, "m": 20000, "h": 3, "screen": "minimizer",
     }
-    seqs = [random_seq(np.random.default_rng(i), 200) for i in range(3)]
+    rng = np.random.default_rng(0)
+    seqs = [random_seq(rng, 200) for _ in range(3)]
     blooms = [bigsi_tpu_torch.BIGSI.bloom(config, seq_to_kmers(s, K)) for s in seqs]
-    assert bigsi_tpu_torch.BIGSI.build(config, blooms, ["a", "b", "c"]) is None
-    for engine in (None, "numpy"):
-        cfg = config if engine is None else dict(config, engine=engine)
-        with pytest.raises(NotImplementedError, match="screened"):
-            bigsi_tpu_torch.BIGSI(cfg, device="cpu")
+    built = bigsi_tpu_torch.BIGSI.build(config, blooms, ["a", "b", "c"], device="cpu")
+    assert built.screen is not None and isinstance(built.screen_engine, DeviceEngine)
+    queries = [seqs[0][:120], mutate(rng, seqs[1], 3), seqs[2][50:], random_seq(rng, 100)]
+    for reference in ("numpy", "tpu"):
+        ref = bigsi_tpu.BIGSI(dict(config, engine=reference))
+        for engine in (None, "numpy"):
+            port = bigsi_tpu_torch.BIGSI(dict(config, engine=engine), device="cpu")
+            for threshold in (1.0, 0.7):
+                assert port.search_batch(queries, threshold) == ref.search_batch(queries, threshold)
+                assert [port.search(q, threshold) for q in queries] == [
+                    ref.search(q, threshold) for q in queries]
+    with pytest.raises(ValueError, match="append inserts only"):
+        port.insert_bloom(blooms[0], 0)
+    plain_cfg = dict(config, **{"storage-config": {"filename": str(tmp_path / "c")}})
+    del plain_cfg["screen"]
+    plain = bigsi_tpu_torch.BIGSI.build(
+        plain_cfg, [bigsi_tpu_torch.BIGSI.bloom(plain_cfg, seq_to_kmers(seqs[0], K))], ["d"],
+        device="cpu")
+    with pytest.raises(ValueError, match="verified"):
+        port.merge(plain)
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])

@@ -12,9 +12,10 @@
   bigsi_tpu nor jax is loaded at the end, and every output equals the
   bigsi_tpu CLI's on the same steps.
 * Indexes are interchangeable: each package's CLI builds classic,
-  blocked/32 and minimizer/16 indexes from the same cortex graphs, the
-  bloom and index files are byte-equal, and either package's searches
-  on either index give equal result dicts.
+  blocked/32, minimizer/16 and verified (classic + minimizer screen)
+  indexes from the same cortex graphs, the bloom and index files are
+  byte-equal, and either package's searches on either index give equal
+  result dicts.
 * The copied pure functions equal bigsi_tpu's on seeded inputs, the
   port-built native library included.
 """
@@ -208,6 +209,7 @@ LAYOUTS = {
     "classic": {},
     "blocked32": {"layout": "blocked", "tile-rows": 32},
     "minimizer16": {"layout": "minimizer", "tile-rows": 16, "minimizer-window": 19},
+    "verified": {"screen": "minimizer"},
 }
 
 
@@ -338,6 +340,27 @@ def parity_native_prep(ref, port, rng):
             np.testing.assert_array_equal(a, b)
 
 
+def parity_verify(ref, port, rng):
+    ref_v, port_v = ref.index.verify, port.index.verify
+    for n in (0, 5, 100, 101, 512, 20000):
+        for override in (None, 0, 13):
+            assert ref_v.screen_margin(n, override) == port_v.screen_margin(n, override)
+    m, w, h = 3000, 6, 3
+    words = rng.integers(0, 1 << 32, size=(m, w), dtype=np.uint32)
+    idx_list = [rng.integers(0, m, size=(int(k), h)).astype(np.int64)
+                for k in rng.integers(1, 400, 24)]
+    cand_list = [rng.integers(0, w * 32, size=int(c)).astype(np.int64)
+                 for c in rng.integers(0, 9, 24)]  # unsorted, repeats, some empty
+    idx_list[3] = cand_list[5] = None
+    for rows, cand in zip(idx_list[:4], cand_list[6:10]):
+        if rows is not None:
+            np.testing.assert_array_equal(ref_v.classic_counts_for_colours(words, rows, cand),
+                                          port_v.classic_counts_for_colours(words, rows, cand))
+    want = ref_v.verify_queries(words, idx_list, cand_list)
+    got = port_v.verify_queries(words, idx_list, cand_list)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
 PARITY = {name[len("parity_"):]: fn for name, fn in globals().items() if name.startswith("parity_")}
 
 
@@ -346,7 +369,7 @@ def test_copied_functions_match_bigsi_tpu(case):
     ref = importlib.import_module("bigsi_tpu")
     port = importlib.import_module("bigsi_tpu_torch")
     for mod in ("hashing.murmur3", "hashing.scheme", "kmers", "matrix.packing", "scoring",
-                "native"):
+                "native", "index.verify"):
         importlib.import_module("bigsi_tpu." + mod)
         importlib.import_module("bigsi_tpu_torch." + mod)
     PARITY[case](ref, port, np.random.default_rng(len(case)))
