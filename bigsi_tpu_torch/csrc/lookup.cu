@@ -36,9 +36,10 @@
 //   write (template kExact = false): the counts-only stage k2 of the
 //   bisection probe scripts/bisect_kernel.py:49 (S3).
 //
-// Kernels F and G, gather_rows and tile_xor, are the probes' kernels, and
-// kernel H, seq_streams, is the seq serving arm's prep: each is described
-// at its code below.
+// Kernels F and G, gather_rows and tile_xor, are the probes' kernels,
+// kernel H, seq_streams, is the seq serving arm's prep, and kernels I, J
+// and K, kmer_rows, bloom_scatter and bloom_transpose, hash k-mers and
+// build an index on the card: each is described at its code below.
 //
 // What bounds kernels A, B and C on an H100: gathered bytes, at random
 // rows.  At m = 2.5e7 and W = 32 the matrix is 3.2 GB, far beyond the 50
@@ -1510,6 +1511,284 @@ int launch_seq_streams(const void* seqs, int B, int L, const void* lens, int k, 
       static_cast<int32_t*>(n_valid), static_cast<uint8_t*>(ok));
   return static_cast<int>(cudaGetLastError());
 }
+
+// -- kernels I, J and K: k-mer hashing and the device build -----------------
+//
+// * kmer_rows (kernel I) replaces the XLA programs of
+//   bigsi_tpu/ops/hash_jax.py: murmur3_32_jax (MurmurHash3_x86_32 of
+//   each ASCII k-mer under each seed, the signed int32 of mmh3.hash),
+//   canonicalize_jax (the byte-wise smaller of the k-mer and its reverse
+//   complement; bytes other than ACGT complement to themselves) and
+//   row_indices_jax (the hashes of seeds 0 .. h - 1, floor-mod m as
+//   Python's % takes it: -5 mod 25 is 20), and the blocked rows of
+//   bigsi_tpu/ops/build_jax.py:54-60 (seed 0 floor-mod max(1, m /
+//   tile_rows) is the tile, seeds 1 .. h floor-mod tile_rows the slots,
+//   the row tile * tile_rows + slot).  One thread a k-mer: it decides
+//   the strand by scanning for the first byte where the k-mer and its
+//   reverse complement differ (a 256-byte complement table in shared
+//   memory), then runs murmur3 over the k / 4 body words and the k % 4
+//   tail bytes of that strand, kSeedChunk seeds per pass, and writes the
+//   raw hashes, the classic rows, the blocked rows or the canonical bytes.
+//   The JAX program's select chain for the complement and its static
+//   compare fold avoided gathers, which cost the TPU about 25x the
+//   arithmetic; a table lookup costs nothing here.  What bounds it: the
+//   k-mers' bytes in (4.06 MB for 131,072 31-mers) and the rows out,
+//   about 0.002 ms at 3.35 TB/s; each thread reads its k-mer's bytes one
+//   at a time through L1, which is simple and far from that bound
+//   (coalesced loads through shared memory are left for later).
+// * bloom_scatter (kernel J) replaces the XLA program
+//   bigsi_tpu/ops/build_jax.py:device_bloom: one sample's bloom from its
+//   k-mers.  It hashes each canonical k-mer as kernel I does and sets
+//   its rows' bits with atomicOr into a zeroed uint32[ceil(m / 32)], bit
+//   p at bit p % 32 of word p / 32.  That is the Hopper form of the JAX
+//   program's scatter-max on a byte per bit and its weighted-sum repack
+//   (XLA has no scatter-OR); duplicate k-mers OR the same bits and can
+//   never clear one, as an additive byte would after 256.  Rows past the
+//   bloom's last word (blocked, m below tile_rows) are dropped, as the
+//   JAX scatter's mode="drop" drops them.  Bound: the k-mers' bytes in
+//   (124 MB for 4,000,000 31-mers) and the bloom out (3.1 MB at m =
+//   2.5e7, which stays in the 50 MB L2 while the atomics land).
+// * bloom_transpose (kernel K) replaces the XLA program
+//   bigsi_tpu/ops/build_jax.py:device_transpose: packed blooms uint32[N,
+//   MW] (sample n's bit p at bit p % 32 of blooms[n, p / 32]) -> the
+//   bitslice matrix uint32[m, W], W = ceil(N / 32) (bit n % 32 of
+//   words[p, n / 32]).  It is kernel D at tile_rows 32 run backwards
+//   (D's cols[t, n] is blooms[n, t]) and uses D's register transpose32.
+//   A block of 8 warps owns kTrWords bloom words (32 * kTrWords bit
+//   positions, so output rows) of 1,024 samples: it reads each sample's
+//   kTrWords words as one run into shared memory, planes padded so
+//   neither the stores nor the transposing reads conflict; then lane l of
+//   a warp takes sample word w = 32 y + l of a bloom word, gathers its 32
+//   samples' words, transposes them in registers and writes its 32 rows'
+//   word w, so each warp store is 32 neighbouring words of one output row
+//   (a whole 128-byte row at W = 32).  Samples past N read as 0, rows
+//   past m are not written, and W need not be 32.  Bound: 3.2 GB in and
+//   3.2 GB out at N = 1,024, m = 2.5e7, as kernel D's.
+
+constexpr int kHashThreads = 256;
+constexpr int kSeedChunk = 4;  // seeds hashed per pass over a k-mer's bytes
+enum KmerOut { kOutHashes = 0, kOutClassic = 1, kOutBlocked = 2, kOutCanonical = 3 };
+
+__device__ __forceinline__ uint8_t complement(unsigned c) {
+  switch (c) {
+    case 'A': return 'T';
+    case 'C': return 'G';
+    case 'G': return 'C';
+    case 'T': return 'A';
+    default: return static_cast<uint8_t>(c);
+  }
+}
+
+// The block's complement table: call before any thread reads it.
+__device__ __forceinline__ void fill_complement(uint8_t* s_comp) {
+  for (int c = threadIdx.x; c < 256; c += blockDim.x) s_comp[c] = complement(c);
+  __syncthreads();
+}
+
+// A k-mer's bytes as they are hashed: its own, or its reverse
+// complement's where that is the smaller in byte order and the caller
+// asked for the canonical form.
+struct Kmer {
+  const uint8_t* p;
+  int k;
+  bool rc;
+  const uint8_t* comp;
+  __device__ __forceinline__ unsigned byte(int j) const { return rc ? comp[p[k - 1 - j]] : p[j]; }
+};
+
+__device__ __forceinline__ Kmer load_kmer(const uint8_t* p, int k, bool canonical,
+                                          const uint8_t* comp) {
+  Kmer km{p, k, false, comp};
+  if (canonical) {
+    for (int j = 0; j < k; ++j) {
+      const uint8_t a = p[j], b = comp[p[k - 1 - j]];
+      if (a != b) {
+        km.rc = b < a;
+        break;
+      }
+    }
+  }
+  return km;
+}
+
+__device__ __forceinline__ unsigned murmur_block(unsigned kw) {
+  return __funnelshift_l(kw * 0xCC9E2D51u, kw * 0xCC9E2D51u, 15) * 0x1B873593u;
+}
+
+// MurmurHash3_x86_32 of the k-mer under seeds[s0 + j], j < kSeedChunk
+// (those past nseeds hash seed 0 and are not used).
+__device__ __forceinline__ void murmur3_chunk(const Kmer& km, const uint32_t* seeds, int s0,
+                                              int nseeds, unsigned (&h)[kSeedChunk]) {
+#pragma unroll
+  for (int j = 0; j < kSeedChunk; ++j) h[j] = s0 + j < nseeds ? __ldg(seeds + s0 + j) : 0u;
+  const int nblocks = km.k >> 2;
+  for (int i = 0; i < nblocks; ++i) {
+    const unsigned kw = murmur_block(km.byte(4 * i) | km.byte(4 * i + 1) << 8 |
+                                     km.byte(4 * i + 2) << 16 | km.byte(4 * i + 3) << 24);
+#pragma unroll
+    for (int j = 0; j < kSeedChunk; ++j) {
+      const unsigned x = h[j] ^ kw;
+      h[j] = __funnelshift_l(x, x, 13) * 5u + 0xE6546B64u;
+    }
+  }
+  const int ntail = km.k & 3;
+  if (ntail) {
+    unsigned kw = 0;
+    for (int j = 0; j < ntail; ++j) kw |= km.byte(4 * nblocks + j) << (8 * j);
+    kw = murmur_block(kw);
+#pragma unroll
+    for (int j = 0; j < kSeedChunk; ++j) h[j] ^= kw;
+  }
+#pragma unroll
+  for (int j = 0; j < kSeedChunk; ++j) {
+    unsigned x = h[j] ^ static_cast<unsigned>(km.k);
+    x ^= x >> 16;
+    x *= 0x85EBCA6Bu;
+    x ^= x >> 13;
+    x *= 0xC2B2AE35u;
+    x ^= x >> 16;
+    h[j] = x;
+  }
+}
+
+// The signed hash floor-mod d (Python's %): always in [0, d).
+__device__ __forceinline__ int floor_mod(unsigned hash, int d) {
+  const int r = static_cast<int>(hash) % d;
+  return r < 0 ? r + d : r;
+}
+
+// Calls emit(j, value) for each output j of the k-mer: kOutHashes the
+// hash under seeds[j], kOutClassic that floor-mod m, kOutBlocked the row
+// of slot j + 1 in the tile of seed 0.
+template <int kMode, typename Emit>
+__device__ __forceinline__ void kmer_values(const Kmer& km, const uint32_t* seeds, int nseeds,
+                                            int m, int tile_rows, Emit emit) {
+  const int num_tiles = max(1, m / tile_rows);
+  int tile = 0;
+  for (int s0 = 0; s0 < nseeds; s0 += kSeedChunk) {
+    unsigned h[kSeedChunk];
+    murmur3_chunk(km, seeds, s0, nseeds, h);
+#pragma unroll
+    for (int j = 0; j < kSeedChunk; ++j) {
+      const int s = s0 + j;
+      if (s >= nseeds) break;
+      if constexpr (kMode == kOutHashes) {
+        emit(s, static_cast<int>(h[j]));
+      } else if constexpr (kMode == kOutClassic) {
+        emit(s, floor_mod(h[j], m));
+      } else if (s == 0) {
+        tile = floor_mod(h[j], num_tiles);
+      } else {
+        emit(s - 1, tile * tile_rows + floor_mod(h[j], tile_rows));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ int64_t grid_thread() {
+  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ int64_t grid_threads() {
+  return static_cast<int64_t>(gridDim.x) * blockDim.x;
+}
+
+// kernel I: kmers uint8[K, k] -> out int32[K, per] (per = nseeds, or
+// nseeds - 1 blocked) or, kOutCanonical, uint8[K, k].
+template <int kMode>
+__global__ void __launch_bounds__(kHashThreads)
+kmer_rows_kernel(const uint8_t* __restrict__ kmers, int64_t K, int k, bool canonical,
+                 const uint32_t* __restrict__ seeds, int nseeds, int m, int tile_rows,
+                 void* __restrict__ out) {
+  __shared__ uint8_t s_comp[256];
+  fill_complement(s_comp);
+  const int per = kMode == kOutBlocked ? nseeds - 1 : nseeds;
+  for (int64_t i = grid_thread(); i < K; i += grid_threads()) {
+    const Kmer km = load_kmer(kmers + i * k, k, canonical || kMode == kOutCanonical, s_comp);
+    if constexpr (kMode == kOutCanonical) {
+      uint8_t* dst = static_cast<uint8_t*>(out) + i * k;
+      for (int j = 0; j < k; ++j) dst[j] = static_cast<uint8_t>(km.byte(j));
+    } else {
+      int32_t* dst = static_cast<int32_t*>(out) + i * per;
+      kmer_values<kMode>(km, seeds, nseeds, m, tile_rows, [&](int j, int v) { dst[j] = v; });
+    }
+  }
+}
+
+// kernel J: the canonical k-mers' rows (kOutClassic or kOutBlocked) set
+// in bloom uint32[bloom_words], which the caller zeroed.
+template <int kMode>
+__global__ void __launch_bounds__(kHashThreads)
+bloom_scatter_kernel(const uint8_t* __restrict__ kmers, int64_t K, int k,
+                     const uint32_t* __restrict__ seeds, int nseeds, int m, int tile_rows,
+                     int64_t bloom_words, unsigned* __restrict__ bloom) {
+  __shared__ uint8_t s_comp[256];
+  fill_complement(s_comp);
+  for (int64_t i = grid_thread(); i < K; i += grid_threads()) {
+    const Kmer km = load_kmer(kmers + i * k, k, true, s_comp);
+    kmer_values<kMode>(km, seeds, nseeds, m, tile_rows, [&](int, int row) {
+      if ((row >> 5) < bloom_words) atomicOr(bloom + (row >> 5), 1u << (row & 31));
+    });
+  }
+}
+
+unsigned hash_grid(int64_t K) {
+  constexpr int64_t kMaxBlocks = int64_t{1} << 20;  // a grid-stride loop takes the rest
+  return static_cast<unsigned>(std::min<int64_t>(kMaxBlocks, (K + kHashThreads - 1) / kHashThreads));
+}
+
+constexpr int kTrWords = 16;            // bloom words (32 bit positions each) of a block
+constexpr int kTrThreads = 256;         // 8 warps
+constexpr int kTrSamples = 1024;        // samples of a block: 32 sample words
+constexpr int kTrPlane = kTrSamples + 1;  // one bloom word of the block's samples, padded
+constexpr size_t kTrSmem = static_cast<size_t>(kTrWords) * kTrPlane * sizeof(unsigned);
+constexpr int kTrBatch = 16;            // loads a thread keeps in flight
+
+// kernel K: block (x, y) takes bloom words t0 = kTrWords x .. t0 +
+// kTrWords - 1 of samples n0 = 1,024 y .. n0 + 1,023, i.e. rows 32 t0 ..
+// 32 (t0 + kTrWords) - 1 of sample words 32 y .. 32 y + 31.
+__global__ void __launch_bounds__(kTrThreads)
+bloom_transpose_kernel(const unsigned* __restrict__ blooms, int N, int64_t MW, int64_t m, int W,
+                       unsigned* __restrict__ words) {
+  // word tt of block sample 32 l + j at s_in[tt * kTrPlane + 32 j + l]:
+  // a warp's transposing read (fixed tt, j; l = lane) takes 32 banks, and
+  // a load step's 16 threads of one sample (tt = 0 .. 15) 16 banks
+  extern __shared__ unsigned s_in[];
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kTrWords;
+  const int n0 = blockIdx.y * kTrSamples;
+  for (int base = threadIdx.x; base < kTrSamples * kTrWords; base += kTrThreads * kTrBatch) {
+    unsigned v[kTrBatch];
+#pragma unroll
+    for (int u = 0; u < kTrBatch; ++u) {
+      const int e = base + u * kTrThreads;  // sample e / kTrWords, its word e % kTrWords
+      const int n = n0 + e / kTrWords;
+      const int64_t t = t0 + e % kTrWords;
+      v[u] = n < N && t < MW ? __ldg(blooms + static_cast<size_t>(n) * MW + t) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kTrBatch; ++u) {
+      const int e = base + u * kTrThreads;
+      const int ns = e / kTrWords;
+      s_in[(e % kTrWords) * kTrPlane + (ns & 31) * 32 + (ns >> 5)] = v[u];
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.y * 32 + lane;
+  for (int tt = threadIdx.x >> 5; tt < kTrWords; tt += kTrThreads / 32) {
+    unsigned a[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) a[j] = s_in[tt * kTrPlane + 32 * j + lane];
+    transpose32(a);  // a[c] is now row 32 (t0 + tt) + c of sample word w
+    const int64_t r0 = (t0 + tt) * 32;
+    if (w < W) {
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        if (r0 + c < m) words[(r0 + c) * W + w] = a[c];
+      }
+    }
+  }
+}
 }  // namespace
 
 extern "C" {
@@ -1661,6 +1940,81 @@ int seq_streams_cut(const void* seqs, int B, int L, const void* lens, int k, int
 #undef SEQ_CUT
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// kmers uint8[K, k]; seeds uint32[nseeds]; mode 0: out int32[K, nseeds],
+// the signed hashes; 1: out int32[K, nseeds], the hashes floor-mod m; 2:
+// out int32[K, nseeds - 1], the blocked rows (seed 0 the tile, the others
+// the slots); 3: out uint8[K, k], the canonical k-mers (seeds unused).
+// canonical: hash each k-mer's canonical form.  1 <= m, tile_rows < 2^31.
+int kmer_rows(const void* kmers, int64_t K, int k, int canonical, const void* seeds, int nseeds,
+              int mode, int m, int tile_rows, void* out, void* stream) {
+  if (K < 0 || k < 0 || nseeds < 0 || m < 1 || tile_rows < 1 ||
+      (mode == kOutBlocked && nseeds < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (K == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = hash_grid(K);
+  const auto* src = static_cast<const uint8_t*>(kmers);
+  const auto* sd = static_cast<const uint32_t*>(seeds);
+  switch (mode) {
+#define KMER_ROWS(MODE)                                                                      \
+  case MODE:                                                                                 \
+    kmer_rows_kernel<MODE><<<grid, kHashThreads, 0, s>>>(src, K, k, canonical != 0, sd, nseeds, \
+                                                          m, tile_rows, out);                \
+    break;
+    KMER_ROWS(kOutHashes) KMER_ROWS(kOutClassic) KMER_ROWS(kOutBlocked) KMER_ROWS(kOutCanonical)
+#undef KMER_ROWS
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kmers uint8[K, k]; seeds uint32[nseeds]; mode 1 (classic) or 2
+// (blocked), as kmer_rows with canonical set; bloom uint32[bloom_words],
+// zeroed by the caller, gets the rows' bits.
+int bloom_scatter(const void* kmers, int64_t K, int k, const void* seeds, int nseeds, int mode,
+                  int m, int tile_rows, int64_t bloom_words, void* bloom, void* stream) {
+  if (K < 0 || k < 0 || nseeds < 0 || m < 1 || tile_rows < 1 || bloom_words < 0 ||
+      (mode == kOutBlocked && nseeds < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (K == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = hash_grid(K);
+  const auto* src = static_cast<const uint8_t*>(kmers);
+  const auto* sd = static_cast<const uint32_t*>(seeds);
+  auto* dst = static_cast<unsigned*>(bloom);
+  switch (mode) {
+    case kOutClassic:
+      bloom_scatter_kernel<kOutClassic><<<grid, kHashThreads, 0, s>>>(
+          src, K, k, sd, nseeds, m, tile_rows, bloom_words, dst);
+      break;
+    case kOutBlocked:
+      bloom_scatter_kernel<kOutBlocked><<<grid, kHashThreads, 0, s>>>(
+          src, K, k, sd, nseeds, m, tile_rows, bloom_words, dst);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// blooms uint32[N, MW]; words uint32[m, W], W = ceil(N / 32);
+// 1 <= m <= 32 * MW.
+int bloom_transpose(const void* blooms, int N, int64_t MW, int64_t m, int W, void* words,
+                    void* stream) {
+  if (N < 1 || MW < 1 || m < 1 || m > 32 * MW || W != (N + 31) / 32 ||
+      (W + 31) / 32 > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      bloom_transpose_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kTrSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((MW + kTrWords - 1) / kTrWords), (W + 31) / 32);
+  bloom_transpose_kernel<<<grid, kTrThreads, kTrSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(blooms), N, MW, m, W, static_cast<unsigned*>(words));
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* lookup_error_string(int code) {

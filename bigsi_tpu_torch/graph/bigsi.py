@@ -393,12 +393,13 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         # per-query k-mer prep, shared by both dispatch paths; the
         # (uniq, inverse) pairs feed the post-counts scoring pass
         mats, inverses, nks = [], [], []
-        for seq in seqs:
-            kmer_mat = seq_to_kmer_matrix(seq, self.kmer_size)
-            uniq, inverse = unique_rows_with_inverse(kmer_mat)
-            mats.append(uniq)
-            inverses.append(inverse if score else None)
-            nks.append(uniq.shape[0])
+        with phase("search.kmer_prep"):  # extraction and dedup
+            for seq in seqs:
+                kmer_mat = seq_to_kmer_matrix(seq, self.kmer_size)
+                uniq, inverse = unique_rows_with_inverse(kmer_mat)
+                mats.append(uniq)
+                inverses.append(inverse if score else None)
+                nks.append(uniq.shape[0])
         score_info = list(zip(mats, inverses)) if score else None
         if self.screen is not None and not score:
             metrics.incr("search.queries", b)
@@ -429,18 +430,20 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
             )
         per_query = []  # (row_idx [K_i, h], num_kmers)
         kmax = 1
-        for uniq in mats:
-            if uniq.shape[0] == 0:
-                per_query.append((np.empty((0, h), dtype=np.int64), 0))
-                continue
-            row_idx = self.kmer_matrix_to_row_idx(uniq)
-            per_query.append((row_idx, uniq.shape[0]))
-            kmax = max(kmax, uniq.shape[0])
-        idx = np.zeros((b, kmax, h), dtype=np.int64)
-        mask = np.zeros((b, kmax), dtype=bool)
-        for i, (row_idx, nk) in enumerate(per_query):
-            idx[i, :nk] = row_idx
-            mask[i, :nk] = True
+        with phase("search.hash"):  # canonical k-mers and rows, per query
+            for uniq in mats:
+                if uniq.shape[0] == 0:
+                    per_query.append((np.empty((0, h), dtype=np.int64), 0))
+                    continue
+                row_idx = self.kmer_matrix_to_row_idx(uniq)
+                per_query.append((row_idx, uniq.shape[0]))
+                kmax = max(kmax, uniq.shape[0])
+        with phase("search.pad"):
+            idx = np.zeros((b, kmax, h), dtype=np.int64)
+            mask = np.zeros((b, kmax), dtype=bool)
+            for i, (row_idx, nk) in enumerate(per_query):
+                idx[i, :nk] = row_idx
+                mask[i, :nk] = True
         with phase("search.batch_counts"):
             counts = self._counts_batch(idx, mask)
         if self.side is not None:

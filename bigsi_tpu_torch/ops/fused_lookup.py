@@ -32,10 +32,21 @@
 * :func:`seq_streams` is kernel H.  It replaces the XLA program
   ``bigsi_tpu/ops/prep_jax.py:prep_streams_device``, the seq serving
   arm's prep from query bytes to the grouped streams kernel E counts.
+* :func:`kmer_rows` is kernel I.  It replaces the XLA programs of
+  ``bigsi_tpu/ops/hash_jax.py`` (murmur3, canonical k-mers, classic rows)
+  and the blocked rows of ``bigsi_tpu/ops/build_jax.py:device_bloom``;
+  :mod:`bigsi_tpu_torch.ops.hash` and ``ops/lookup.py:make_full_query_step``
+  call it.
+* :func:`bloom_scatter` is kernel J.  It replaces the XLA program
+  ``bigsi_tpu/ops/build_jax.py:device_bloom`` (one sample's bloom).
+* :func:`bloom_transpose` is kernel K.  It replaces the XLA program
+  ``bigsi_tpu/ops/build_jax.py:device_transpose`` (blooms to the
+  bitslice matrix).
 
 A wrapper checks its arguments, then runs the plain version from
 :mod:`bigsi_tpu_torch.ops.lookup` (kernel H's from
-:mod:`bigsi_tpu_torch.ops.prep`) for tensors on the CPU, and launches
+:mod:`bigsi_tpu_torch.ops.prep`, I's from :mod:`bigsi_tpu_torch.ops.hash`,
+J's and K's from :mod:`bigsi_tpu_torch.ops.build`) for tensors on the CPU, and launches
 its kernel for tensors on a CUDA device.  It never falls back: a build
 or launch that fails raises.  Each wrapper counts its kernel's launches
 in its ``launches`` attribute; ``tile_counts`` also counts its
@@ -50,6 +61,8 @@ import threading
 
 import torch
 
+from bigsi_tpu_torch.ops import build as build_plain
+from bigsi_tpu_torch.ops import hash as hash_plain
 from bigsi_tpu_torch.ops import lookup as plain
 from bigsi_tpu_torch.ops import prep
 from bigsi_tpu_torch.ops._build import load
@@ -81,9 +94,13 @@ def _library() -> ctypes.CDLL:
     lib.tile_xor.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, ptr, ptr]
     lib.seq_streams.argtypes = [ptr, i32, i32, ptr, i32, i32, ctypes.c_uint64, i64, i32, i32,
                                 i32, i32, ptr, ptr, ptr, ptr, ptr]
+    lib.kmer_rows.argtypes = [ptr, i64, i32, i32, ptr, i32, i32, i32, i32, ptr, ptr]
+    lib.bloom_scatter.argtypes = [ptr, i64, i32, ptr, i32, i32, i32, i32, i64, ptr, ptr]
+    lib.bloom_transpose.argtypes = [ptr, i32, i64, i64, i32, ptr, ptr]
     for fn in (lib.classic_counts, lib.tile_counts, lib.grouped_tile_counts,
                lib.pack_tile_cols, lib.cols_counts, lib.tile_counts_only,
-               lib.gather_rows, lib.tile_xor, lib.seq_streams):
+               lib.gather_rows, lib.tile_xor, lib.seq_streams, lib.kmer_rows,
+               lib.bloom_scatter, lib.bloom_transpose):
         fn.restype = i32
     lib.lookup_error_string.argtypes = [i32]
     lib.lookup_error_string.restype = ctypes.c_char_p
@@ -441,3 +458,100 @@ def seq_streams(
 
 
 seq_streams.launches = 0
+
+
+MAX_M = 2**31 - 1  # bloom rows are int32
+
+
+def check_hash_args(kmers, seeds, out: str, outs, m: int, tile_rows: int) -> str:
+    """Kernels I's and J's arguments: contiguous uint8[K, k] k-mers and
+    int32[S] seeds on one device, ``out`` one of ``outs``, m and tile_rows
+    in [1, MAX_M], seed 0 present for blocked rows; -> the device kind."""
+    if not isinstance(kmers, torch.Tensor) or kmers.dim() != 2:
+        raise ValueError("kmers must be a [K, k] tensor")
+    check_tensor("kmers", kmers, torch.uint8, kmers.shape, kmers.device)
+    if not isinstance(seeds, torch.Tensor) or seeds.dim() != 1:
+        raise ValueError("seeds must be a 1-D tensor")
+    check_tensor("seeds", seeds, torch.int32, seeds.shape, kmers.device)
+    if out not in outs:
+        raise ValueError("out must be one of %s, got %r" % (outs, out))
+    for name, value in (("m", m), ("tile_rows", tile_rows)):
+        if not 1 <= value <= MAX_M:
+            raise ValueError("%s must be in [1, %d], got %r" % (name, MAX_M, value))
+    if out == "blocked" and seeds.numel() < 1:
+        raise ValueError("blocked rows need seed 0 for the tile")
+    return device_kind(kmers)
+
+
+def kmer_rows(kmers: torch.Tensor, seeds: torch.Tensor, out: str, *, canonical: bool = False,
+              m: int = 1, tile_rows: int = 1) -> torch.Tensor:
+    """Kernel I: kmers uint8[K, k], seeds int32[S] (u32 bits) -> ``out``
+    "hashes" int32[K, S], "classic" int32[K, S], "blocked" int32[K, S - 1]
+    or "canonical" uint8[K, k]; the contract of
+    :func:`bigsi_tpu_torch.ops.hash.kmer_rows_plain`.  With ``canonical``
+    the k-mers' canonical forms are hashed in the same launch."""
+    if check_hash_args(kmers, seeds, out, hash_plain.KMER_OUTS, m, tile_rows) == "cpu":
+        return hash_plain.kmer_rows_plain(kmers, seeds, out, canonical, m, tile_rows)
+    n, k = kmers.shape
+    if out == "canonical":
+        res = torch.empty((n, k), dtype=torch.uint8, device=kmers.device)
+    else:
+        per = seeds.numel() - (out == "blocked")
+        res = torch.empty((n, per), dtype=torch.int32, device=kmers.device)
+    if n == 0 or res.numel() == 0:
+        return res
+    args = (kmers.data_ptr(), n, k, int(canonical), seeds.data_ptr(), seeds.numel(),
+            hash_plain.KMER_OUTS.index(out), m, tile_rows)
+    return launch(kmer_rows, kmers.device, args, (res,))[0]
+
+
+kmer_rows.launches = 0
+
+
+def bloom_scatter(kmers: torch.Tensor, seeds: torch.Tensor, out: str, m: int,
+                  tile_rows: int = 1) -> torch.Tensor:
+    """Kernel J: one sample's bloom from its k-mers, kmers uint8[K, k] ->
+    int32[ceil(m / 32)] (u32 bits, bloom bit p at bit p % 32 of word p /
+    32) with the rows that :func:`kmer_rows` gives the canonical k-mers
+    (``out`` "classic" or "blocked", seeds int32[S]) set; rows past the
+    last word are dropped.  The contract of
+    :func:`bigsi_tpu_torch.ops.build.bloom_plain`."""
+    if check_hash_args(kmers, seeds, out, ("classic", "blocked"), m, tile_rows) == "cpu":
+        return build_plain.bloom_plain(kmers, seeds, out, m, tile_rows)
+    mw = -(-m // 32)
+    bloom = torch.zeros(mw, dtype=torch.int32, device=kmers.device)
+    n, k = kmers.shape
+    if n == 0 or seeds.numel() == 0:
+        return bloom
+    args = (kmers.data_ptr(), n, k, seeds.data_ptr(), seeds.numel(),
+            hash_plain.KMER_OUTS.index(out), m, tile_rows, mw)
+    return launch(bloom_scatter, kmers.device, args, (bloom,))[0]
+
+
+bloom_scatter.launches = 0
+
+
+def bloom_transpose(blooms: torch.Tensor, m: int, rows_chunk: int = 4096) -> torch.Tensor:
+    """Kernel K: packed blooms int32[N, MW] (sample n's bit p at bit p % 32
+    of ``blooms[n, p // 32]``) -> the bitslice matrix int32[m, ceil(N /
+    32)] (bit n % 32 of ``words[p, n // 32]``), 1 <= m <= 32 * MW; the
+    contract of :func:`bigsi_tpu_torch.ops.build.transpose_plain`, which
+    runs on the CPU in chunks of ``rows_chunk`` rows (the kernel takes
+    none)."""
+    if not isinstance(blooms, torch.Tensor) or blooms.dim() != 2:
+        raise ValueError("blooms must be a [N, MW] tensor")
+    check_tensor("blooms", blooms, torch.int32, blooms.shape, blooms.device)
+    n, mw = blooms.shape
+    if not 1 <= m <= 32 * mw:
+        raise ValueError("m must be in [1, 32 * MW = %d], got %r" % (32 * mw, m))
+    if device_kind(blooms) == "cpu":
+        return build_plain.transpose_plain(blooms, m, rows_chunk)
+    w = -(-n // 32)
+    words = torch.empty((m, w), dtype=torch.int32, device=blooms.device)
+    if n == 0:
+        return words
+    args = (blooms.data_ptr(), n, mw, m, w)
+    return launch(bloom_transpose, blooms.device, args, (words,))[0]
+
+
+bloom_transpose.launches = 0

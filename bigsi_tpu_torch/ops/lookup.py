@@ -5,7 +5,8 @@ Counterparts of ``bigsi_tpu/ops/lookup.py`` (``and_rows_jnp``,
 ``batched_counts_jnp``, ``blocked_presence``, ``blocked_counts``,
 ``build_grouped_streams``, ``grouped_counts``, ``cols_dtype``,
 ``pack_tile_cols``, ``grouped_counts_cols``, ``cols_presence``),
-re-stated here because that module imports jax, and the plain versions
+re-stated here because that module imports jax, with
+``make_full_query_step`` (kernels I and A on the card), and the plain versions
 of the probes' kernels (``gather_rows``, ``tile_xor``, and
 ``blocked_counts`` without exact); ``field_hits`` and
 ``grouped_counts_cols_live`` restate kernel E's own arithmetic (its
@@ -93,6 +94,34 @@ def batched_counts(words, row_idx, mask):
     packed = and_rows(words, row_idx.reshape(b * k, h))
     packed = packed.reshape(b, k, words.shape[1])
     return counts_from_packed(packed, mask), exact_and_reduce(packed, mask)
+
+
+def make_full_query_step(m: int, h: int):
+    """One serving step from raw ASCII k-mers to hit counts, classic
+    layout: the counterpart of ``bigsi_tpu/ops/lookup.py:make_full_query_step``.
+
+    step(words int32[m, W], kmers uint8[B, K, k], mask bool[B, K]) ->
+    counts int32[B, W * 32].  On a CUDA device kernel I
+    (:func:`~bigsi_tpu_torch.ops.fused_lookup.kmer_rows`: canonical
+    k-mers, murmur3, floor-mod m) writes the rows int32[B, K, h] on the
+    card and kernel A (:func:`~bigsi_tpu_torch.ops.fused_lookup.classic_counts`)
+    counts them; the host only pads the batch.  On the CPU both wrappers
+    run their plain versions."""
+    from bigsi_tpu_torch.ops import fused_lookup
+
+    seeds = {}  # device -> the seeds 0 .. h-1, made once
+
+    def step(words, kmers, mask):
+        if not isinstance(kmers, torch.Tensor) or kmers.dim() != 3:
+            raise ValueError("kmers must be a [B, K, k] tensor")
+        b, k, klen = kmers.shape
+        if kmers.device not in seeds:
+            seeds[kmers.device] = torch.arange(h, dtype=torch.int32, device=kmers.device)
+        rows = fused_lookup.kmer_rows(kmers.reshape(b * k, klen), seeds[kmers.device],
+                                      "classic", canonical=True, m=m)
+        return fused_lookup.classic_counts(words, rows.view(b, k, h), mask)[0]
+
+    return step
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:

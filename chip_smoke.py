@@ -128,7 +128,36 @@ k-mers each), the shape of bench.py.  Phases:
    timed beside it, pallas-work (kernel C over the pre-gathered tiles)
    checked equal to kernel C over the words; kernels F, G, B (both
    builds) and C must have launched, and no other.  torch's
-   index_select of S2's rows is timed as kernel F's yardstick.
+   index_select of S2's rows is timed as kernel F's yardstick;
+12. hashing and build: kernel I (kmer_rows) bit for bit against its
+   plain version (ops/hash.py) at k 1-9, 16, 31, 32 and 33, seeds [0, 1,
+   99, 2^32 - 1], h 1, 3 and 8, K 0 and 1, N and lowercase bytes,
+   palindromes, blocked rows at tile_rows 8, 32 and 64 with m below
+   tile_rows and m not a multiple of 32, with and without canonical
+   forms, the golden "ATT" rows, and on the classic index's phase-10
+   batch (256 queries, 512 distinct 31-mers each), whose rows must be the
+   facade's kmer_matrix_to_row_idx rows; the port's entry() on the card
+   against its plain run; kernel J (bloom_scatter) against its plain
+   version (ops/build.py) on one sample of KMERS_PER_SAMPLE distinct
+   31-mers of a random genome (classic and blocked/32, m = 2.5e7, h = 3)
+   and at small m, and 256 copies of one k-mer; kernel K
+   (bloom_transpose) at N 1 to 4,096 (W 1 to 128) and m 1,000 to 70,001.
+   Then, the launch counts set to 0: the full query step
+   (ops/lookup.py:make_full_query_step, kernels I then A) on the classic
+   words and that batch, whose counts must be kernel A's on the facade's
+   host-hashed rows; device_bloom of the sample in both layouts (J),
+   each equal to the port's host bloom, with its set-bit share beside
+   synth.bloom_density; and the round trip words -> kernel D at
+   tile_rows 32 -> the transposed cols (the 1,024 blooms) ->
+   device_transpose (K), which must give the words back bit for bit.
+   I, A, J, K and D must have launched, and no other.  Times on CUDA
+   events with a cold L2: I, the full step, J (both layouts) and K beside
+   their plain versions and bounds (K on a slice first held to its plain
+   version), and K beside a torch copy_ of the blooms.  Phase 10 also
+   prints each row-major index's host part split by the facade's spans
+   (search.kmer_prep, search.hash, search.pad) and, beside the classic
+   index's search.hash, kernel I on that batch's distinct k-mers with
+   and without their copy-in.
 
 Then a check that no module of bigsi_tpu or jax was loaded, one JSON
 line of the kernels (each with its time, its plain version's, the
@@ -175,7 +204,7 @@ DEVICE = "cuda"
 HEADLINE_R, HEADLINE_RUN = 20, 10
 DEFAULT_R, DEFAULT_RUN = 6, 6
 SOURCE = "bigsi_tpu_torch/csrc/lookup.cu"
-# the eight kernels: (name, TPU kernels or XLA program it replaces)
+# the eleven kernels: (name, TPU kernels or XLA program it replaces)
 KERNELS = (
     ("classic_counts", "bigsi_tpu/index/device_engine.py:89"),
     ("tile_counts", "bigsi_tpu/ops/pallas_lookup.py:203, scripts/bisect_kernel.py:49"),
@@ -188,6 +217,9 @@ KERNELS = (
     ("tile_xor", "scripts/microbench.py:233, scripts/bisect_kernel.py:49, "
      "scripts/bisect_compile.py:107, scripts/bisect_size.py:73"),
     ("seq_streams", "bigsi_tpu/ops/prep_jax.py:260"),
+    ("kmer_rows", "bigsi_tpu/ops/hash_jax.py:32, :72, :104; bigsi_tpu/ops/build_jax.py:54-60"),
+    ("bloom_scatter", "bigsi_tpu/ops/build_jax.py:41"),
+    ("bloom_transpose", "bigsi_tpu/ops/build_jax.py:78"),
 )
 COLS_KERNELS = ("pack_tile_cols", "cols_counts", "seq_streams")
 # the indexes of phases 4-9: name -> (config entries, kernels of its path)
@@ -204,9 +236,11 @@ INDEXES = {
 }
 VERIFIED = "verified"
 HEADLINE = "minimizer/16"
-# the engine's spans inside counts_batch_kmers and counts_batch_seqs
+# the engine's spans inside counts_batch_kmers and counts_batch_seqs, and
+# the facade's over the host part of a search_batch off the seq arm
 SPANS = ("engine.kmer_prep", "engine.kmer_counts", "engine.seq_in", "engine.seq_kernels",
-         "engine.seq_out")
+         "engine.seq_out", "search.kmer_prep", "search.hash", "search.pad")
+HOST_SPANS = ("search.kmer_prep", "search.hash", "search.pad")
 PROBE_INDEX = "blocked/32"  # whose resident words the probes of phase 11 read
 PROBE_KERNELS = ("gather_rows", "tile_xor", "tile_counts", "grouped_tile_counts")
 # the cols indexes, with their r: the seq arm (kernels H and E) serves
@@ -297,6 +331,8 @@ def bound_bytes(name: str, *args) -> int:
     if name == "seq_streams":  # outs: utile, gmask, n_valid; and the ok byte
         seqs, lens, outs = args
         return nbytes(seqs, lens, *outs) + 1
+    if name in ("kmer_rows", "bloom_scatter", "bloom_transpose"):  # inputs, outputs
+        return nbytes(*args)
     raise ValueError(name)
 
 
@@ -1594,6 +1630,55 @@ def phase_verified_times(number: int, gpu: str, port, seqs, errors: Errors, rng)
     verify_load_times(number, gpu, port, "bench.py's load B=%d K=512" % B, rows, cands, errors)
 
 
+def batch_kmers(seqs):
+    """The distinct k-mers of each query, as the facade's search_batch
+    finds them (extraction, then unique rows in their order): -> (kmers
+    uint8[B, Kmax, K_LEN] zero-padded, mask bool[B, Kmax], the k-mers of
+    all queries concatenated uint8[sum K_i, K_LEN])."""
+    from bigsi_tpu_torch.kmers import seq_to_kmer_matrix, unique_rows_with_inverse
+
+    mats = [unique_rows_with_inverse(seq_to_kmer_matrix(s, K_LEN))[0] for s in seqs]
+    kmax = max(1, max(m.shape[0] for m in mats))
+    kmers = np.zeros((len(mats), kmax, K_LEN), dtype=np.uint8)
+    mask = np.zeros((len(mats), kmax), dtype=bool)
+    for i, m in enumerate(mats):
+        kmers[i, :m.shape[0]] = m
+        mask[i, :m.shape[0]] = True
+    return kmers, mask, np.concatenate(mats)
+
+
+def batch_hash_times(number: int, gpu: str, seqs, mid: dict, errors: Errors) -> None:
+    """Beside the classic search_batch's host hashing (span search.hash):
+    kernel I on the same batch's distinct k-mers, with the copy-in of
+    their bytes (host clock, synchronized) and alone (CUDA events)."""
+    import torch
+
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import hash as kmer_hash
+    from bigsi_tpu_torch.scripts.timing import cuda_ms, host_ms
+
+    flat = batch_kmers(seqs)[2]
+    seeds = torch.arange(H, dtype=torch.int32, device=DEVICE)
+
+    def copy_and_hash():
+        rows = fl.kmer_rows(torch.from_numpy(flat).to(DEVICE), seeds, "classic",
+                            canonical=True, m=M)
+        torch.cuda.synchronize()
+        return rows
+
+    on_card = torch.from_numpy(flat).to(DEVICE)
+    args = (on_card, seeds, "classic")
+    errors.compare("kmer_rows", (fl.kmer_rows(*args, canonical=True, m=M),),
+                   (kmer_hash.kmer_rows_plain(*args, True, M),), "the classic batch's k-mers")
+    with_copy = host_ms(copy_and_hash, 20)
+    alone = cuda_ms(lambda: fl.kmer_rows(*args, canonical=True, m=M), 20, DEVICE)
+    print("phase %d hash classic [%s]: search.hash %.3f ms on the host (the median call) "
+          "against kernel I on the batch's %d distinct k-mers: %.4f ms with the copy-in of "
+          "their %.2f MB of bytes (host clock, synchronized), %.4f ms alone (CUDA events, "
+          "cold L2)" % (number, gpu, mid["search.hash"], flat.shape[0], with_copy,
+                        flat.nbytes / 1e6, alone), flush=True)
+
+
 def phase_times(number: int, gpu: str, runs, errors: Errors, rng) -> dict:
     """-> {kernel: {ms, plain_ms, bound_ms, library_ms}}, each kernel on
     the first index of its path (kernels H and E on minimizer/16's seq
@@ -1615,16 +1700,21 @@ def phase_times(number: int, gpu: str, runs, errors: Errors, rng) -> dict:
         moved = bound_bytes(kname, *args)
         record(kernel_ms, kname, k_ms, p_ms, moved)
         print("phase %d times %s [%s]: search_batch of %d queries, median of %d calls "
-              "%.3f ms (%.1f queries/s); inside that call: k-mer extraction and padding "
-              "on the host %.3f ms, engine counts_batch %.3f ms, result building %.3f ms; %s "
-              "kernel %.4f ms vs plain PyTorch %.4f ms (%s, cold L2); kernel share of "
-              "search_batch %.4f; bound %.4f ms by bytes (%.1f MB), %.3f of bound"
+              "%.3f ms (%.1f queries/s); inside that call: the host part %.3f ms (k-mer "
+              "extraction and dedup %.3f ms, hashing %.3f ms, padding %.3f ms: spans "
+              "search.kmer_prep, search.hash, search.pad), engine counts_batch %.3f ms, "
+              "result building %.3f ms; %s kernel %.4f ms vs plain PyTorch %.4f ms (%s, cold "
+              "L2); kernel share of search_batch %.4f; bound %.4f ms by bytes (%.1f MB), %.3f "
+              "of bound"
               % (number, name, gpu, B, len(calls), mid["search_batch"],
-                 B / mid["search_batch"] * 1e3, mid["prep"], mid["counts"], mid["results"],
+                 B / mid["search_batch"] * 1e3, mid["prep"],
+                 *(mid[span] for span in HOST_SPANS), mid["counts"], mid["results"],
                  kname, k_ms, p_ms, shape, k_ms / mid["search_batch"], bound_ms(moved),
                  moved / 1e6, bound_ms(moved) / k_ms),
               flush=True)
         print("phase %d calls %s [%s]: %s" % (number, name, gpu, json.dumps(calls)), flush=True)
+        if name == "classic":
+            batch_hash_times(number, gpu, seqs, mid, errors)
     print("phase %d memory [%s]: peak %.2f GB allocated on the device"
           % (number, gpu, max(PEAK["bytes"], torch.cuda.max_memory_allocated()) / 1e9),
           flush=True)
@@ -1836,6 +1926,251 @@ def phase_probes(number: int, gpu: str, runs, gen, errors: Errors, fns) -> tuple
     return kernel_ms, counted
 
 
+# -- phase 12 -----------------------------------------------------------
+
+
+BUILD_KERNELS = ("kmer_rows", "classic_counts", "bloom_scatter", "bloom_transpose",
+                 "pack_tile_cols")  # phase 12's path: the full step, J, and D's round trip
+HASH_LENGTHS = tuple(range(1, 10)) + (16, 31, 32, 33)  # every k % 4
+
+
+def hash_checks(gen, rng, errors: Errors) -> int:
+    """Kernel I against its plain version bit for bit: every k % 4 and
+    k // 4 up to 8, seeds [0, 1, 99] and 2^32 - 1, h 1, 3 and 8, K 0 and
+    1, N and lowercase bytes, reverse-complement palindromes, blocked rows
+    at tile_rows 8, 32 and 64 with m below tile_rows and m not a multiple
+    of 32, each with and without canonical forms; the golden value.
+    -> the number of cases."""
+    import torch
+
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import hash as kmer_hash
+
+    cases = 0
+    odd = np.frombuffer(b"ACGTNacgtn", dtype=np.uint8)
+    moduli = ((M, 32), (1000, 8), (100_003, 64), (5, 8), (20, 64))
+    for k in HASH_LENGTHS:
+        mats = {"K=0": np.zeros((0, k), np.uint8), "K=1": acgt(rng, (1, k)),
+                "ACGT": acgt(rng, (3000, k)), "N and lowercase": odd[rng.integers(0, 10, (3000, k))]}
+        if k % 2 == 0:
+            half = acgt(rng, (500, k // 2))
+            mats["palindromes"] = np.concatenate(
+                [half, np.stack([revcomp(x) for x in half])], axis=1)
+        for what, km in mats.items():
+            km = torch.from_numpy(np.ascontiguousarray(km)).to(DEVICE)
+            for out, seeds in (("hashes", [0, 1, 99, 2**32 - 1]), ("classic", range(1)),
+                               ("classic", range(3)), ("classic", range(8)),
+                               ("blocked", range(2)), ("blocked", range(4)),
+                               ("blocked", range(9)), ("canonical", ())):
+                s = kmer_hash.seed_tensor(list(seeds), km.device)
+                for m, tile_rows in moduli if out in ("classic", "blocked") else moduli[:1]:
+                    for canonical in (False, True):
+                        args = (km, s, out)
+                        errors.compare(
+                            "kmer_rows",
+                            (fl.kmer_rows(*args, canonical=canonical, m=m, tile_rows=tile_rows),),
+                            (kmer_hash.kmer_rows_plain(*args, canonical, m, tile_rows),),
+                            "k=%d %s %s seeds=%d m=%d tile_rows=%d canonical=%s"
+                            % (k, what, out, len(s), m, tile_rows, canonical))
+                        cases += 1
+            if "palindromes" == what:
+                check(torch.equal(kmer_hash.canonicalize(km), km),
+                      "a palindrome is its own canonical form")
+    att = torch.tensor([list(b"ATT")], dtype=torch.uint8, device=DEVICE)
+    golden = sorted(kmer_hash.row_indices(att, 3, 25)[0].tolist())
+    check(golden == [2, 15, 17], "row_indices('ATT', 3, 25) = {2, 15, 17}, got %s" % golden)
+    torch.cuda.synchronize()
+    return cases + 1
+
+
+def sample_kmers(rng, n: int) -> np.ndarray:
+    """n distinct k-mers of a random genome drawn from ``rng``, in genome
+    order: uint8[n, K_LEN]."""
+    genome = acgt(rng, n + n // 100 + K_LEN)
+    windows = np.lib.stride_tricks.sliding_window_view(genome, K_LEN)
+    codes = np.zeros(windows.shape[0], dtype=np.uint64)
+    for j in range(K_LEN):  # 2 bits a base: 62 bits, one code per distinct k-mer
+        codes = (codes << np.uint64(2)) | (windows[:, j] >> 1 & 3).astype(np.uint64)
+    first = np.sort(np.unique(codes, return_index=True)[1])
+    check(first.size >= n, "the genome holds %d distinct k-mers" % n)
+    return np.ascontiguousarray(windows[first[:n]])
+
+
+def host_bloom(kmers: np.ndarray, layout: str) -> np.ndarray:
+    """The port's host build of one sample's bloom (BIGSI.bloom's canonical
+    k-mers through build_bloom_from_kmer_matrix: the native hasher and
+    setter for classic), packed LSB-first as int32 words."""
+    from bigsi_tpu_torch.bloom.bloomfilter import build_bloom_from_kmer_matrix
+    from bigsi_tpu_torch.kmers import canonicalize_kmer_matrix
+    from bigsi_tpu_torch.matrix.packing import pack_bits_lsb
+
+    bits = build_bloom_from_kmer_matrix(canonicalize_kmer_matrix(kmers), M, H, layout=layout,
+                                        tile_rows=32)
+    return pack_bits_lsb(bits[None, :])[0].view(np.int32)
+
+
+def build_checks(gen, rng, errors: Errors, sample) -> int:
+    """Kernels J and K against their plain versions on the card: J on the
+    sample's k-mers (classic and blocked/32 at m = M) and at small m,
+    tile_rows 8 and 64 with m below them, 256 copies of one k-mer; K at N
+    1, 33, 70, 1,500 and 4,096 (W 1, 2, 3, 47 and 128), m 1,000, 4,096 and
+    70,001.  -> the number of cases."""
+    import torch
+
+    from bigsi_tpu_torch.ops import build, fused_lookup as fl
+
+    cases = 0
+    for layout in ("classic", "blocked"):
+        nseeds = H + 1 if layout == "blocked" else H
+        seeds = torch.arange(nseeds, dtype=torch.int32, device=DEVICE)
+        for km, m, tile_rows in ((sample, M, 32), (sample[:5000], 1000, 8),
+                                 (sample[:5000], 100_003, 64), (sample[:500], 5, 8),
+                                 (sample[:500], 20, 64)):
+            tile_rows = tile_rows if layout == "blocked" else 1
+            errors.compare("bloom_scatter", (fl.bloom_scatter(km, seeds, layout, m, tile_rows),),
+                           (build.bloom_plain(km, seeds, layout, m, tile_rows),),
+                           "%s K=%d m=%d tile_rows=%d" % (layout, km.shape[0], m, tile_rows))
+            cases += 1
+    one = sample[:1]
+    once = build.device_bloom(one, m=M, h=H)
+    check(bool(once.any()) and torch.equal(build.device_bloom(one.repeat(256, 1), m=M, h=H), once),
+          "256 copies of one k-mer set its bits, as one copy does")
+    cases += 1
+    for n, m in ((1, 1000), (33, 1000), (70, 4096), (1500, 70_001), (4096, 4096), (70, 1000)):
+        mw = -(-m // 32) + 2  # words past m: the rows are cut to m
+        blooms = torch.randint(-2**31, 2**31, (n, mw), generator=gen, device=DEVICE,
+                               dtype=torch.int32)
+        errors.compare("bloom_transpose", (fl.bloom_transpose(blooms, m),),
+                       (build.transpose_plain(blooms, m),), "N=%d m=%d MW=%d" % (n, m, mw))
+        cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def phase_build_ops(number: int, gpu: str, runs, gen, rng, errors: Errors,
+                    fns) -> tuple[dict, dict]:
+    """Hashing and the device build at full width: kernel I's cases, the
+    port's entry() on the card against its plain run, J's and K's cases;
+    then with the launch counts at 0 the full query step on the classic
+    index's words and its phase-10 batch (I then A), one sample's bloom of
+    KMERS_PER_SAMPLE k-mers in the classic and blocked/32 layouts (J), and
+    the round trip words -> D's cols at tile_rows 32 -> their transpose
+    (the blooms) -> K -> words.  -> ({kernel: times} of I, J and K,
+    {kernel: launches} of that run)."""
+    import torch
+
+    from bigsi_tpu_torch.entry import entry
+    from bigsi_tpu_torch.ops import build, fused_lookup as fl
+    from bigsi_tpu_torch.ops import hash as kmer_hash
+    from bigsi_tpu_torch.ops import lookup as plain
+    from bigsi_tpu_torch.ops.lookup import make_full_query_step
+    from bigsi_tpu_torch.scripts.timing import cuda_ms
+    from bigsi_tpu_torch.synth import bloom_density
+
+    t0 = time.perf_counter()
+    cases = hash_checks(gen, rng, errors)
+    port, seqs = runs["classic"]
+    words = port.engine.words
+    kmers_np, mask_np, _ = batch_kmers(seqs)
+    idx, mask_host = engine_inputs(port, seqs, "counts_batch")[:2]
+    check(np.array_equal(mask_np, mask_host), "the facade's mask is the batch's distinct k-mers")
+    kmers = torch.from_numpy(kmers_np).to(DEVICE)
+    mask = torch.from_numpy(mask_np).to(DEVICE)
+    idx_t = torch.from_numpy(idx.astype(np.int32)).to(DEVICE)
+    b, kmax, _ = kmers.shape
+    seeds = torch.arange(H, dtype=torch.int32, device=DEVICE)
+    i_args = (kmers.view(b * kmax, K_LEN), seeds, "classic")
+    rows = fl.kmer_rows(*i_args, canonical=True, m=M)
+    errors.compare("kmer_rows", (rows,), (kmer_hash.kmer_rows_plain(*i_args, True, M),),
+                   "the classic batch B=%d K=%d" % (b, kmax))
+    check(torch.equal(rows.view(b, kmax, H)[mask], idx_t[mask]),
+          "kernel I's rows are the facade's kmer_matrix_to_row_idx rows")
+    want_counts = fl.classic_counts(words, idx_t, mask)[0]
+    fn, args = entry(device=DEVICE)
+    fn_cpu, args_cpu = entry(device="cpu")
+    for got, want in zip(fn(*args), fn_cpu(*args_cpu)):
+        check(torch.equal(got.cpu(), want), "entry() on the card equals its plain run")
+    sample = torch.from_numpy(sample_kmers(rng, KMERS_PER_SAMPLE)).to(DEVICE)
+    cases += build_checks(gen, rng, errors, sample) + 2
+    print("phase %d hashing and build: kmer_rows, bloom_scatter and bloom_transpose bit-exact "
+          "with their plain versions in %d cases; I's rows are the facade's; entry() equals "
+          "its plain run" % (number, cases), flush=True)
+
+    # the main path, its launches counted
+    for fn_k in fns.values():
+        fn_k.launches = 0
+    step = make_full_query_step(M, H)
+    counts = step(words, kmers, mask)
+    blooms_j = {layout: build.device_bloom(sample, m=M, h=H, layout=layout)
+                for layout in ("classic", "blocked")}
+    cols = fl.pack_tile_cols(words, 32)
+    blooms = cols.t().contiguous()
+    del cols
+    back = build.device_transpose(blooms, M)
+    torch.cuda.synchronize()
+    counted = {k: fn_k.launches for k, fn_k in fns.items()}
+    check(all(counted[k] > 0 for k in BUILD_KERNELS) and
+          not any(n for k, n in counted.items() if k not in BUILD_KERNELS),
+          "hashing and build launched %s and no other: %s" % (BUILD_KERNELS, counted))
+    check(torch.equal(counts, want_counts),
+          "the full step's counts are kernel A's on the facade's host-hashed rows")
+    check(torch.equal(back, words), "K(D(words) transposed) gives the classic words back")
+    del back
+    sample_np = sample.cpu().numpy()
+    for layout, bloom in blooms_j.items():
+        check(np.array_equal(bloom.cpu().numpy(), host_bloom(sample_np, layout)),
+              "J's %s bloom of %d k-mers is the host's" % (layout, KMERS_PER_SAMPLE))
+        share = int(popcount64(bloom.long() & 0xFFFFFFFF).sum()) / M
+        print("phase %d bloom %s: %d k-mers, m=%d, h=%d: set-bit share %.5f (synth.bloom_density "
+              "%.5f); equal to the host's bloom and J's plain version"
+              % (number, layout, KMERS_PER_SAMPLE, M, H, share,
+                 bloom_density(H, KMERS_PER_SAMPLE, M)), flush=True)
+
+    # times on CUDA events, cold L2
+    kernel_ms = {}
+    i_out = (rows,)
+    i_ms = cuda_ms(lambda: fl.kmer_rows(*i_args, canonical=True, m=M), 20, DEVICE)
+    i_plain = cuda_ms(lambda: kmer_hash.kmer_rows_plain(*i_args, True, M), 5, DEVICE)
+    i_bytes = bound_bytes("kmer_rows", i_args[0], seeds, *i_out)
+    record(kernel_ms, "kmer_rows", i_ms, i_plain, i_bytes)
+    step_ms = cuda_ms(lambda: step(words, kmers, mask), 20, DEVICE)
+    step_plain = cuda_ms(lambda: plain.batched_counts(
+        words, kmer_hash.kmer_rows_plain(*i_args, True, M).view(b, kmax, H), mask), 5, DEVICE)
+    step_bytes = i_bytes + bound_bytes("classic_counts", words, rows.view(b, kmax, H), mask)
+    j_seeds = torch.arange(H, dtype=torch.int32, device=DEVICE)
+    j_ms = cuda_ms(lambda: fl.bloom_scatter(sample, j_seeds, "classic", M), 10, DEVICE)
+    j_plain = cuda_ms(lambda: build.bloom_plain(sample, j_seeds, "classic", M), 2, DEVICE)
+    j_bytes = bound_bytes("bloom_scatter", sample, blooms_j["classic"])
+    record(kernel_ms, "bloom_scatter", j_ms, j_plain, j_bytes)
+    jb_ms = cuda_ms(lambda: build.device_bloom(sample, m=M, h=H, layout="blocked"), 10, DEVICE)
+    sl = blooms[:, :4096].contiguous()
+    errors.compare("bloom_transpose", (fl.bloom_transpose(sl, sl.shape[1] * 32),),
+                   (build.transpose_plain(sl, sl.shape[1] * 32),),
+                   "a slice of the full size: N=%d m=%d" % (sl.shape[0], sl.shape[1] * 32))
+    del sl
+    k_ms = cuda_ms(lambda: fl.bloom_transpose(blooms, M), 5, DEVICE)
+    k_plain = cuda_ms(lambda: build.transpose_plain(blooms, M, rows_chunk=1 << 18), 1, DEVICE)
+    dst = torch.empty_like(blooms)
+    floor = cuda_ms(lambda: dst.copy_(blooms), 5, DEVICE)
+    del dst
+    k_bytes = bound_bytes("bloom_transpose", blooms, words)
+    record(kernel_ms, "bloom_transpose", k_ms, k_plain, k_bytes)
+    del blooms
+    for what, ms, p_ms, moved in (
+            ("kmer_rows (I), the classic batch's %d k-mers" % (b * kmax), i_ms, i_plain, i_bytes),
+            ("the full step (I + A), B=%d K=%d" % (b, kmax), step_ms, step_plain, step_bytes),
+            ("bloom_scatter (J), %d k-mers classic" % KMERS_PER_SAMPLE, j_ms, j_plain, j_bytes),
+            ("bloom_transpose (K), N=%d m=%d" % (N, M), k_ms, k_plain, k_bytes)):
+        print("phase %d times %s [%s]: %.4f ms vs plain PyTorch %.4f ms; bound %.4f ms by "
+              "bytes (%.2f MB), %.3f of bound" % (number, what, gpu, ms, p_ms, bound_ms(moved),
+                                                   moved / 1e6, bound_ms(moved) / ms), flush=True)
+    print("phase %d times [%s]: bloom_scatter blocked/32 %.4f ms; bloom_transpose beside a torch "
+          "copy_ of its %.1f MB of blooms %.4f ms (K / copy %.3f); the phase took %.1f s"
+          % (number, gpu, jb_ms, nbytes(words) / 1e6, floor, k_ms / floor,
+             time.perf_counter() - t0), flush=True)
+    return kernel_ms, counted
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1875,6 +2210,10 @@ def main() -> None:
     kernel_ms.update(probe_ms)
     for k in PROBE_KERNELS:
         launches[k] += counted[k]
+    build_ms, built = phase_build_ops(number + 3, gpu, runs, gen, rng, errors, fns)
+    kernel_ms.update(build_ms)
+    for k in BUILD_KERNELS:
+        launches[k] += built[k]
     loaded = sorted(m for m in sys.modules
                     if m in ("bigsi_tpu", "jax") or m.startswith(("bigsi_tpu.", "jax.")))
     check(not loaded, "neither bigsi_tpu nor jax was imported: %s" % loaded)
