@@ -1523,31 +1523,53 @@ int launch_seq_streams(const void* seqs, int B, int L, const void* lens, int k, 
 //   Python's % takes it: -5 mod 25 is 20), and the blocked rows of
 //   bigsi_tpu/ops/build_jax.py:54-60 (seed 0 floor-mod max(1, m /
 //   tile_rows) is the tile, seeds 1 .. h floor-mod tile_rows the slots,
-//   the row tile * tile_rows + slot).  One thread a k-mer: it decides
-//   the strand by scanning for the first byte where the k-mer and its
-//   reverse complement differ (a 256-byte complement table in shared
-//   memory), then runs murmur3 over the k / 4 body words and the k % 4
-//   tail bytes of that strand, kSeedChunk seeds per pass, and writes the
-//   raw hashes, the classic rows, the blocked rows or the canonical bytes.
-//   The JAX program's select chain for the complement and its static
-//   compare fold avoided gathers, which cost the TPU about 25x the
-//   arithmetic; a table lookup costs nothing here.  What bounds it: the
-//   k-mers' bytes in (4.06 MB for 131,072 31-mers) and the rows out,
-//   about 0.002 ms at 3.35 TB/s; each thread reads its k-mer's bytes one
-//   at a time through L1, which is simple and far from that bound
-//   (coalesced loads through shared memory are left for later).
+//   the row tile * tile_rows + slot).  What bounds it: the k-mers'
+//   bytes in (4.06 MB for 131,072 31-mers) and the rows out, about 0.002
+//   ms at 3.35 TB/s.  The staged reader (below) is its design, and J's:
+//   a block takes a run of up to 128 consecutive k-mers, one a thread,
+//   whose bytes are one contiguous range, and copies the range into
+//   shared memory with 16-byte cp.async, a warp instruction 512
+//   contiguous bytes (a warp's byte load of one k-mer a thread spans 8
+//   cache lines).  A thread reads its
+//   k-mer as 32-bit words, two aligned shared loads and a funnel shift
+//   each (the range starts anywhere: a run at i * k, a view such as
+//   x[1:]); the reverse complement's words are the forward bytes' words
+//   reversed and complemented through __byte_perm tables (A <-> T, C <->
+//   G exactly, any other byte itself), and the strand is the one whose
+//   lowest differing byte in the first differing word is the smaller.
+//   murmur3 runs over the chosen strand's k / 4 words and tail, one lane
+//   a seed, kSeedChunk seeds a pass; the floor-mods multiply (FastMod).
+//   The run's raw hashes, classic rows, blocked rows or canonical bytes
+//   are staged in shared memory and leave in 16-byte stores.  A run holds at most
+//   kRunBytes of k-mers, so a long k-mer means fewer k-mers a run, down
+//   to one.  The grid has a block a run, whose resident blocks overlap
+//   one another's copies and hashing; past kMaxHashBlocks a block takes
+//   further runs, the next one's copy in flight while it hashes (two
+//   stages).  A persistent grid of two-stage blocks, 256-thread blocks,
+//   and warps sorted by strand (so a warp of forward k-mers skips the
+//   reverse complement) each measured slower on an H100 (PERF.md,
+//   section 6).  The JAX program's select chain for the complement and
+//   its static compare fold avoided gathers, which cost the TPU about 25x
+//   the arithmetic.
 // * bloom_scatter (kernel J) replaces the XLA program
 //   bigsi_tpu/ops/build_jax.py:device_bloom: one sample's bloom from its
-//   k-mers.  It hashes each canonical k-mer as kernel I does and sets
-//   its rows' bits with atomicOr into a zeroed uint32[ceil(m / 32)], bit
-//   p at bit p % 32 of word p / 32.  That is the Hopper form of the JAX
-//   program's scatter-max on a byte per bit and its weighted-sum repack
-//   (XLA has no scatter-OR); duplicate k-mers OR the same bits and can
-//   never clear one, as an additive byte would after 256.  Rows past the
-//   bloom's last word (blocked, m below tile_rows) are dropped, as the
-//   JAX scatter's mode="drop" drops them.  Bound: the k-mers' bytes in
-//   (124 MB for 4,000,000 31-mers) and the bloom out (3.1 MB at m =
-//   2.5e7, which stays in the 50 MB L2 while the atomics land).
+//   k-mers.  It reads and hashes each canonical k-mer as kernel I does
+//   and sets its rows' bits with atomicOr into a zeroed uint32[ceil(m /
+//   32)], bit p at bit p % 32 of word p / 32.  That is the Hopper form of
+//   the JAX program's scatter-max on a byte per bit and its weighted-sum
+//   repack (XLA has no scatter-OR); duplicate k-mers OR the same bits and
+//   can never clear one, as an additive byte would after 256.  A blocked
+//   k-mer's bits are ORed together by bloom word first (WordMerge), so
+//   each word it touches takes one atomic: at tile_rows <= 32 dividing
+//   32 its rows lie in one word (one atomic where there were h).  Classic
+//   rows are random, an atomic each.  Rows past the bloom's last word
+//   (blocked, m below tile_rows) are dropped, as the JAX scatter's
+//   mode="drop" drops them.  Bound by bytes: the k-mers' bytes in (124 MB
+//   for 4,000,000 31-mers) and the bloom out (3.1 MB at m = 2.5e7, which
+//   stays in the 50 MB L2 while the atomics land).  What holds classic J
+//   is the atomics: 12,000,000 scattered 32-bit atomics run at about 70
+//   G/s on an H100, about 0.17 ms whatever the reader (PERF.md, section
+//   6); fewer would take merging rows of different k-mers by bloom word.
 // * bloom_transpose (kernel K) replaces the XLA program
 //   bigsi_tpu/ops/build_jax.py:device_transpose: packed blooms uint32[N,
 //   MW] (sample n's bit p at bit p % 32 of blooms[n, p / 32]) -> the
@@ -1565,82 +1587,194 @@ int launch_seq_streams(const void* seqs, int B, int L, const void* lens, int k, 
 //   past m are not written, and W need not be 32.  Bound: 3.2 GB in and
 //   3.2 GB out at N = 1,024, m = 2.5e7, as kernel D's.
 
-constexpr int kHashThreads = 256;
-constexpr int kSeedChunk = 4;  // seeds hashed per pass over a k-mer's bytes
+constexpr int kHashThreads = 128;    // a block; a run holds at most one k-mer a thread
+constexpr int kSeedChunk = 4;        // seeds hashed per pass over a k-mer's words
+constexpr int kRunBytes = 8192;      // k-mer bytes a run holds at most (past one k-mer)
+constexpr int kOutRunBytes = 16384;  // output bytes a run of kernel I aims at
+constexpr int kStages = 2;           // runs a block has in shared memory: hashed or in flight
+constexpr int64_t kMaxHashBlocks = int64_t{1} << 20;  // past it a block takes further runs
+constexpr int kStagePad = 16;        // stage bytes before the copy (reverse words read back)
+constexpr int kMergeWords = 2;       // bloom words blocked J merges one k-mer's bits into
 enum KmerOut { kOutHashes = 0, kOutClassic = 1, kOutBlocked = 2, kOutCanonical = 3 };
 
-__device__ __forceinline__ uint8_t complement(unsigned c) {
-  switch (c) {
-    case 'A': return 'T';
-    case 'C': return 'G';
-    case 'G': return 'C';
-    case 'T': return 'A';
-    default: return static_cast<uint8_t>(c);
-  }
+__device__ __forceinline__ unsigned lds32(unsigned addr) {
+  unsigned v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
 }
 
-// The block's complement table: call before any thread reads it.
-__device__ __forceinline__ void fill_complement(uint8_t* s_comp) {
-  for (int c = threadIdx.x; c < 256; c += blockDim.x) s_comp[c] = complement(c);
-  __syncthreads();
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
 }
 
-// A k-mer's bytes as they are hashed: its own, or its reverse
-// complement's where that is the smaller in byte order and the caller
-// asked for the canonical form.
-struct Kmer {
-  const uint8_t* p;
-  int k;
-  bool rc;
-  const uint8_t* comp;
-  __device__ __forceinline__ unsigned byte(int j) const { return rc ? comp[p[k - 1 - j]] : p[j]; }
-};
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-__device__ __forceinline__ Kmer load_kmer(const uint8_t* p, int k, bool canonical,
-                                          const uint8_t* comp) {
-  Kmer km{p, k, false, comp};
-  if (canonical) {
-    for (int j = 0; j < k; ++j) {
-      const uint8_t a = p[j], b = comp[p[k - 1 - j]];
-      if (a != b) {
-        km.rc = b < a;
-        break;
+// Waits for all but the latest kPending committed groups of this thread's copies.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Each byte's top bit copied over the byte (prmt's sign mode: 0x80 -> 0xFF).
+__device__ __forceinline__ unsigned byte_signs(unsigned x) {
+  unsigned r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(0u), "r"(0xBA98u));
+  return r;
+}
+
+__device__ __forceinline__ uintptr_t umax(uintptr_t a, uintptr_t b) { return a > b ? a : b; }
+__device__ __forceinline__ uintptr_t umin(uintptr_t a, uintptr_t b) { return a < b ? a : b; }
+
+// Copies bytes [b0, b1) of the k-mer tensor src (n bytes) into stage:
+// the byte at address g lands at stage[kStagePad + g - a], a the address
+// of b0 rounded down to 16.  A 16-byte chunk inside the tensor goes by
+// cp.async (one warp instruction moves 512 contiguous bytes); a chunk
+// that reaches past either end of the tensor (a view's unaligned start,
+// the last run's end) is copied a byte at a time, its bytes in [b0, b1)
+// only, so nothing outside the tensor is read.
+__device__ __forceinline__ void stage_run(uint8_t* stage, const uint8_t* src, int64_t n,
+                                          int64_t b0, int64_t b1) {
+  const uintptr_t t0 = reinterpret_cast<uintptr_t>(src), t1 = t0 + n;
+  const uintptr_t g0 = t0 + b0, g1 = t0 + b1, a = g0 & ~uintptr_t{15};
+  const int chunks = static_cast<int>((g1 - a + 15) >> 4);
+  for (int q = threadIdx.x; q < chunks; q += blockDim.x) {
+    const uintptr_t c = a + 16 * static_cast<uintptr_t>(q);
+    uint8_t* dst = stage + kStagePad + 16 * q;
+    if (c >= t0 && c + 16 <= t1) {
+      cp_async16(dst, reinterpret_cast<const void*>(c));
+    } else {
+      for (uintptr_t g = umax(c, g0); g < umin(c + 16, g1); ++g) {
+        dst[g - c] = *reinterpret_cast<const uint8_t*>(g);
       }
     }
   }
-  return km;
+}
+
+// Stores n bytes of a run's output to dst, from ostage, where
+// ostage[(dst % 16) + b] holds byte b: 16-byte stores, and byte stores in
+// a chunk that the range covers only in part.
+__device__ __forceinline__ void store_run(uint8_t* dst, const uint8_t* ostage, int64_t n) {
+  const uintptr_t d0 = reinterpret_cast<uintptr_t>(dst), d1 = d0 + n, a = d0 & ~uintptr_t{15};
+  const int chunks = static_cast<int>((d1 - a + 15) >> 4);
+  for (int q = threadIdx.x; q < chunks; q += blockDim.x) {
+    const uintptr_t c = a + 16 * static_cast<uintptr_t>(q);
+    const uint8_t* src = ostage + 16 * q;
+    if (c >= d0 && c + 16 <= d1) {
+      *reinterpret_cast<uint4*>(c) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (uintptr_t g = umax(c, d0); g < umin(c + 16, d1); ++g) {
+        *reinterpret_cast<uint8_t*>(g) = src[g - c];
+      }
+    }
+  }
+}
+
+// 0x80 in each byte of y that is 0, else 0 (no carry crosses a byte).
+__device__ __forceinline__ unsigned zero_bytes(unsigned y) {
+  return ~(((y & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | y | 0x7F7F7F7Fu);
+}
+
+// The reverse complement of four bytes: byte order reversed, A <-> T and
+// C <-> G, any other byte (N, lowercase) itself.  A byte's low 3 bits
+// (A 1, C 3, T 4, G 7: distinct) index two 8-byte tables through
+// __byte_perm: the letter of that code (an entry no byte of that code
+// can equal where there is none) and what XOR complements it; the XOR
+// applies where the byte is that letter.  The codes' nibbles come out in
+// byte order 0, 2, 1, 3, and the last permute restores the order and
+// reverses it.
+__device__ __forceinline__ unsigned reverse_complement(unsigned x) {
+  constexpr unsigned kLetterLo = 0x43034101u, kLetterHi = 0x47070454u;
+  constexpr unsigned kXorLo = 0x04001500u, kXorHi = 0x04000015u;
+  const unsigned t = x & 0x07070707u;
+  const unsigned codes = t | (t >> 12);
+  const unsigned xp = __byte_perm(x, 0, 0x3120);
+  const unsigned letter = zero_bytes(__byte_perm(kLetterLo, kLetterHi, codes) ^ xp);
+  const unsigned flip = __byte_perm(kXorLo, kXorHi, codes) & byte_signs(letter);
+  return __byte_perm(xp ^ flip, 0, 0x0213);
+}
+
+// A staged k-mer read as murmur3's little-endian words on one strand.
+// Word i is bytes 4i .. 4i + 3 of the k-mer from two aligned shared
+// loads and a funnel shift: forward, the stage's bytes at s + 4i (s the
+// k-mer's first byte); reverse complement, those at s + k - 4 - 4i,
+// reverse-complemented.  The stage's pad and slack hold the bytes a word
+// reads past the run; masked words drop them.
+struct StagedKmer {
+  unsigned addr;  // shared address of the aligned word holding word 0's first byte
+  int step;       // bytes from word i's aligned word to word i + 1's: 4 or -4
+  unsigned sh;    // bit offset of word 0 in its aligned word
+  bool rc;        // the reverse complement
+  int k;
+
+  // stage: the stage's shared address; s: the k-mer's first byte in it
+  __device__ __forceinline__ StagedKmer(unsigned stage, int s, int k_, bool rc_) : rc(rc_), k(k_) {
+    const int p0 = rc ? s + k - 4 : s;
+    addr = stage + 4 * (p0 >> 2);
+    step = rc ? -4 : 4;
+    sh = 8u * (p0 & 3);
+  }
+
+  __device__ __forceinline__ unsigned word(int i) const {
+    const unsigned a = addr + step * i;
+    const unsigned raw = __funnelshift_r(lds32(a), lds32(a + 4), sh);
+    return rc ? reverse_complement(raw) : raw;
+  }
+
+  // word i with only the k-mer's bytes kept (the last word has k % 4)
+  __device__ __forceinline__ unsigned masked(int i) const {
+    const int left = k - 4 * i;
+    const unsigned w = word(i);
+    return left >= 4 ? w : w & ((1u << 8 * left) - 1u);
+  }
+};
+
+// Whether the canonical form of the k-mer at stage byte s is its reverse
+// complement: smaller in byte order than the k-mer.  The first word where
+// the strands differ decides, by its lowest differing byte (the first in
+// index order).
+__device__ __forceinline__ bool reverse_is_smaller(unsigned stage, int s, int k) {
+  const StagedKmer fwd(stage, s, k, false), rev(stage, s, k, true);
+  const int words = (k + 3) >> 2;
+  for (int i = 0; i < words; ++i) {
+    const unsigned a = fwd.masked(i), b = rev.masked(i);
+    if (a != b) {
+      const int sh = (__ffs(a ^ b) - 1) & ~7;
+      return (b >> sh & 0xFFu) < (a >> sh & 0xFFu);
+    }
+  }
+  return false;
 }
 
 __device__ __forceinline__ unsigned murmur_block(unsigned kw) {
   return __funnelshift_l(kw * 0xCC9E2D51u, kw * 0xCC9E2D51u, 15) * 0x1B873593u;
 }
 
-// MurmurHash3_x86_32 of the k-mer under seeds[s0 + j], j < kSeedChunk
-// (those past nseeds hash seed 0 and are not used).
-__device__ __forceinline__ void murmur3_chunk(const Kmer& km, const uint32_t* seeds, int s0,
-                                              int nseeds, unsigned (&h)[kSeedChunk]) {
+// MurmurHash3_x86_32 of the k-mer under seeds[0 .. kLanes - 1].
+template <int kLanes>
+__device__ __forceinline__ void murmur3(const StagedKmer& km, const uint32_t* seeds,
+                                        unsigned (&h)[kLanes]) {
 #pragma unroll
-  for (int j = 0; j < kSeedChunk; ++j) h[j] = s0 + j < nseeds ? __ldg(seeds + s0 + j) : 0u;
+  for (int j = 0; j < kLanes; ++j) h[j] = __ldg(seeds + j);
   const int nblocks = km.k >> 2;
+#pragma unroll 4
   for (int i = 0; i < nblocks; ++i) {
-    const unsigned kw = murmur_block(km.byte(4 * i) | km.byte(4 * i + 1) << 8 |
-                                     km.byte(4 * i + 2) << 16 | km.byte(4 * i + 3) << 24);
+    const unsigned kw = murmur_block(km.word(i));
 #pragma unroll
-    for (int j = 0; j < kSeedChunk; ++j) {
+    for (int j = 0; j < kLanes; ++j) {
       const unsigned x = h[j] ^ kw;
       h[j] = __funnelshift_l(x, x, 13) * 5u + 0xE6546B64u;
     }
   }
-  const int ntail = km.k & 3;
-  if (ntail) {
-    unsigned kw = 0;
-    for (int j = 0; j < ntail; ++j) kw |= km.byte(4 * nblocks + j) << (8 * j);
-    kw = murmur_block(kw);
+  if (km.k & 3) {
+    const unsigned kw = murmur_block(km.masked(nblocks));
 #pragma unroll
-    for (int j = 0; j < kSeedChunk; ++j) h[j] ^= kw;
+    for (int j = 0; j < kLanes; ++j) h[j] ^= kw;
   }
 #pragma unroll
-  for (int j = 0; j < kSeedChunk; ++j) {
+  for (int j = 0; j < kLanes; ++j) {
     unsigned x = h[j] ^ static_cast<unsigned>(km.k);
     x ^= x >> 16;
     x *= 0x85EBCA6Bu;
@@ -1651,68 +1785,176 @@ __device__ __forceinline__ void murmur3_chunk(const Kmer& km, const uint32_t* se
   }
 }
 
-// The signed hash floor-mod d (Python's %): always in [0, d).
-__device__ __forceinline__ int floor_mod(unsigned hash, int d) {
-  const int r = static_cast<int>(hash) % d;
-  return r < 0 ? r + d : r;
+// x mod d by multiplication (Lemire, Kaser and Kurz, "Faster remainder
+// by direct computation", 2019): with M = ceil(2^64 / d), the top 64
+// bits of (M x mod 2^64) d are x mod d for every u32 x and d (M wraps to
+// 0 at d = 1, which gives 0).  mod() is the signed hash's floor-mod
+// (Python's %): hash + 2^31 as a u32, less 2^31 mod d.
+struct FastMod {
+  unsigned long long M;
+  unsigned d;
+  int wrap;  // 2^31 mod d
+
+  __device__ __forceinline__ int mod(unsigned hash) const {
+    const unsigned long long low = M * (hash ^ 0x80000000u);
+    const unsigned r = static_cast<unsigned>(
+        (static_cast<unsigned long long>(static_cast<unsigned>(low >> 32)) * d +
+         __umulhi(static_cast<unsigned>(low), d)) >> 32);
+    const int v = static_cast<int>(r) - wrap;
+    return v < 0 ? v + static_cast<int>(d) : v;
+  }
+};
+
+FastMod fast_mod(unsigned d) {
+  return FastMod{~0ull / d + 1, d, static_cast<int>((1u << 31) % d)};
 }
 
-// Calls emit(j, value) for each output j of the k-mer: kOutHashes the
-// hash under seeds[j], kOutClassic that floor-mod m, kOutBlocked the row
-// of slot j + 1 in the tile of seed 0.
-template <int kMode, typename Emit>
-__device__ __forceinline__ void kmer_values(const Kmer& km, const uint32_t* seeds, int nseeds,
-                                            int m, int tile_rows, Emit emit) {
-  const int num_tiles = max(1, m / tile_rows);
-  int tile = 0;
-  for (int s0 = 0; s0 < nseeds; s0 += kSeedChunk) {
-    unsigned h[kSeedChunk];
-    murmur3_chunk(km, seeds, s0, nseeds, h);
+// Calls emit(j, value) for outputs s0 .. s0 + kLanes - 1: kOutHashes the
+// hash under seeds[j], kOutClassic that floor-mod m (rows), kOutBlocked
+// slot j's row (output j - 1) in the tile of seed 0 (rows: the tiles,
+// slots: tile_rows).
+template <int kMode, int kLanes, typename Emit>
+__device__ __forceinline__ void lane_values(const StagedKmer& km, const uint32_t* seeds, int s0,
+                                            const FastMod& rows, const FastMod& slots,
+                                            int& tile, Emit& emit) {
+  unsigned h[kLanes];
+  murmur3<kLanes>(km, seeds + s0, h);
 #pragma unroll
-    for (int j = 0; j < kSeedChunk; ++j) {
-      const int s = s0 + j;
-      if (s >= nseeds) break;
-      if constexpr (kMode == kOutHashes) {
-        emit(s, static_cast<int>(h[j]));
-      } else if constexpr (kMode == kOutClassic) {
-        emit(s, floor_mod(h[j], m));
-      } else if (s == 0) {
-        tile = floor_mod(h[j], num_tiles);
-      } else {
-        emit(s - 1, tile * tile_rows + floor_mod(h[j], tile_rows));
-      }
+  for (int j = 0; j < kLanes; ++j) {
+    const int s = s0 + j;
+    if constexpr (kMode == kOutHashes) {
+      emit(s, static_cast<int>(h[j]));
+    } else if constexpr (kMode == kOutClassic) {
+      emit(s, rows.mod(h[j]));
+    } else if (s == 0) {
+      tile = rows.mod(h[j]);
+    } else {
+      emit(s - 1, tile * static_cast<int>(slots.d) + slots.mod(h[j]));
     }
   }
 }
 
-__device__ __forceinline__ int64_t grid_thread() {
-  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+// Every output of the k-mer, kSeedChunk seeds a pass over its words.
+template <int kMode, typename Emit>
+__device__ __forceinline__ void kmer_values(const StagedKmer& km, const uint32_t* seeds,
+                                            int nseeds, const FastMod& rows,
+                                            const FastMod& slots, Emit emit) {
+  int tile = 0;
+  for (int s0 = 0; s0 < nseeds; s0 += kSeedChunk) {
+    switch (nseeds - s0) {
+      case 1: lane_values<kMode, 1>(km, seeds, s0, rows, slots, tile, emit); break;
+      case 2: lane_values<kMode, 2>(km, seeds, s0, rows, slots, tile, emit); break;
+      case 3: lane_values<kMode, 3>(km, seeds, s0, rows, slots, tile, emit); break;
+      default: lane_values<kMode, kSeedChunk>(km, seeds, s0, rows, slots, tile, emit);
+    }
+  }
 }
 
-__device__ __forceinline__ int64_t grid_threads() {
-  return static_cast<int64_t>(gridDim.x) * blockDim.x;
+// One blocked k-mer's bloom bits, merged by 32-bit word before kernel J's
+// atomics: the first kMergeWords words it touches take one atomicOr each,
+// at the end (its rows lie in one word at tile_rows <= 32 dividing 32, in
+// two at 64 or 24); a further word, if any, is ORed at once.  Rows past
+// the bloom's last word are dropped.
+struct WordMerge {
+  int word[kMergeWords];
+  unsigned bits[kMergeWords];
+
+  __device__ __forceinline__ WordMerge() {
+#pragma unroll
+    for (int u = 0; u < kMergeWords; ++u) word[u] = -1, bits[u] = 0u;
+  }
+
+  // branch-free, so the words stay in registers
+  __device__ __forceinline__ void add(int row, int64_t bloom_words, unsigned* bloom) {
+    const int w = row >> 5;
+    const unsigned bit = 1u << (row & 31);
+    bool placed = w >= bloom_words;  // dropped
+#pragma unroll
+    for (int u = 0; u < kMergeWords; ++u) {
+      const bool take = !placed && (word[u] == w || word[u] < 0);  // words fill in order
+      word[u] = take ? w : word[u];
+      bits[u] |= take ? bit : 0u;
+      placed = placed || take;
+    }
+    if (!placed) atomicOr(bloom + w, bit);
+  }
+
+  __device__ __forceinline__ void flush(unsigned* bloom) const {
+#pragma unroll
+    for (int u = 0; u < kMergeWords; ++u) {
+      if (word[u] >= 0) atomicOr(bloom + word[u], bits[u]);
+    }
+  }
+};
+
+// The run loop of kernels I and J.  Block b takes runs b, b + gridDim.x,
+// ... of `run` consecutive k-mers in kStages stages of stage_bytes: while
+// it hashes a run, the copies of its next kStages - 1 runs are in flight.
+// body(stage's shared address, first k-mer i0, k-mers n, stage byte of
+// k-mer i0) is called by every thread of the block, thread t owning k-mer
+// i0 + t.
+template <typename Body>
+__device__ __forceinline__ void for_each_run(const uint8_t* kmers, int64_t K, int k, int run,
+                                             int stage_bytes, uint8_t* smem, Body body) {
+  const int64_t runs = (K + run - 1) / run;
+  const auto stage = [&](int64_t r, uint8_t* dst) {
+    const int64_t i1 = (r + 1) * run < K ? (r + 1) * run : K;
+    stage_run(dst, kmers, K * k, r * run * k, i1 * k);
+  };
+  int64_t r = blockIdx.x;
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (r + j * gridDim.x < runs) stage(r + j * gridDim.x, smem + j * stage_bytes);
+    cp_async_commit();
+  }
+  for (int it = 0; r < runs; r += gridDim.x, ++it) {
+    const int64_t ahead = r + (kStages - 1) * static_cast<int64_t>(gridDim.x);
+    if (ahead < runs) stage(ahead, smem + (it + kStages - 1) % kStages * stage_bytes);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int64_t i0 = r * run;
+    const int n = static_cast<int>(K - i0 < run ? K - i0 : run);
+    const int s0 = kStagePad + static_cast<int>(reinterpret_cast<uintptr_t>(kmers + i0 * k) & 15);
+    body(smem_addr(smem + it % kStages * stage_bytes), i0, n, s0);
+    __syncthreads();  // the stage (and kernel I's output stage) is free again
+  }
 }
 
 // kernel I: kmers uint8[K, k] -> out int32[K, per] (per = nseeds, or
-// nseeds - 1 blocked) or, kOutCanonical, uint8[K, k].
+// nseeds - 1 blocked) or, kOutCanonical, uint8[K, k].  A run's outputs
+// are staged in shared memory after the input stages and leave in
+// 16-byte stores.
 template <int kMode>
 __global__ void __launch_bounds__(kHashThreads)
 kmer_rows_kernel(const uint8_t* __restrict__ kmers, int64_t K, int k, bool canonical,
-                 const uint32_t* __restrict__ seeds, int nseeds, int m, int tile_rows,
-                 void* __restrict__ out) {
-  __shared__ uint8_t s_comp[256];
-  fill_complement(s_comp);
+                 const uint32_t* __restrict__ seeds, int nseeds, FastMod rows, FastMod slots,
+                 int run, int stage_bytes, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* ostage = smem + kStages * stage_bytes;
   const int per = kMode == kOutBlocked ? nseeds - 1 : nseeds;
-  for (int64_t i = grid_thread(); i < K; i += grid_threads()) {
-    const Kmer km = load_kmer(kmers + i * k, k, canonical || kMode == kOutCanonical, s_comp);
-    if constexpr (kMode == kOutCanonical) {
-      uint8_t* dst = static_cast<uint8_t*>(out) + i * k;
-      for (int j = 0; j < k; ++j) dst[j] = static_cast<uint8_t>(km.byte(j));
-    } else {
-      int32_t* dst = static_cast<int32_t*>(out) + i * per;
-      kmer_values<kMode>(km, seeds, nseeds, m, tile_rows, [&](int j, int v) { dst[j] = v; });
+  const int64_t row_bytes = kMode == kOutCanonical ? k : 4 * static_cast<int64_t>(per);
+  for_each_run(kmers, K, k, run, stage_bytes, smem,
+               [&](unsigned st, int64_t i0, int n, int s0) {
+    uint8_t* dst = out + i0 * row_bytes;
+    const int o = static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
+    const int j = threadIdx.x;
+    if (j < n) {
+      const bool rc = (canonical || kMode == kOutCanonical) && reverse_is_smaller(st, s0 + j * k, k);
+      const StagedKmer km(st, s0 + j * k, k, rc);
+      if constexpr (kMode == kOutCanonical) {
+        uint8_t* bytes = ostage + o + j * k;
+        for (int i = 0; 4 * i < k; ++i) {
+          const unsigned w = km.word(i);
+          for (int b = 0; b < 4 && 4 * i + b < k; ++b) bytes[4 * i + b] = static_cast<uint8_t>(w >> 8 * b);
+        }
+      } else {
+        int32_t* values = reinterpret_cast<int32_t*>(ostage + o) + j * per;
+        kmer_values<kMode>(km, seeds, nseeds, rows, slots, [&](int j, int v) { values[j] = v; });
+      }
     }
-  }
+    __syncthreads();
+    store_run(dst, ostage, n * row_bytes);
+  });
 }
 
 // kernel J: the canonical k-mers' rows (kOutClassic or kOutBlocked) set
@@ -1720,21 +1962,101 @@ kmer_rows_kernel(const uint8_t* __restrict__ kmers, int64_t K, int k, bool canon
 template <int kMode>
 __global__ void __launch_bounds__(kHashThreads)
 bloom_scatter_kernel(const uint8_t* __restrict__ kmers, int64_t K, int k,
-                     const uint32_t* __restrict__ seeds, int nseeds, int m, int tile_rows,
-                     int64_t bloom_words, unsigned* __restrict__ bloom) {
-  __shared__ uint8_t s_comp[256];
-  fill_complement(s_comp);
-  for (int64_t i = grid_thread(); i < K; i += grid_threads()) {
-    const Kmer km = load_kmer(kmers + i * k, k, true, s_comp);
-    kmer_values<kMode>(km, seeds, nseeds, m, tile_rows, [&](int, int row) {
-      if ((row >> 5) < bloom_words) atomicOr(bloom + (row >> 5), 1u << (row & 31));
-    });
-  }
+                     const uint32_t* __restrict__ seeds, int nseeds, FastMod rows, FastMod slots,
+                     int run, int stage_bytes, int64_t bloom_words, unsigned* __restrict__ bloom) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  for_each_run(kmers, K, k, run, stage_bytes, smem,
+               [&](unsigned st, int64_t, int n, int s0) {
+    const int j = threadIdx.x;
+    if (j < n) {
+      const StagedKmer km(st, s0 + j * k, k, reverse_is_smaller(st, s0 + j * k, k));
+      if constexpr (kMode == kOutClassic) {  // random rows: an atomic each
+        kmer_values<kMode>(km, seeds, nseeds, rows, slots, [&](int, int row) {
+          if ((row >> 5) < bloom_words) atomicOr(bloom + (row >> 5), 1u << (row & 31));
+        });
+      } else {
+        WordMerge merged;
+        kmer_values<kMode>(km, seeds, nseeds, rows, slots,
+                           [&](int, int row) { merged.add(row, bloom_words, bloom); });
+        merged.flush(bloom);
+      }
+    }
+  });
 }
 
-unsigned hash_grid(int64_t K) {
-  constexpr int64_t kMaxBlocks = int64_t{1} << 20;  // a grid-stride loop takes the rest
-  return static_cast<unsigned>(std::min<int64_t>(kMaxBlocks, (K + kHashThreads - 1) / kHashThreads));
+// A launch of kernel I or J: `run` k-mers a run, kStages input stages of
+// stage_bytes, then out_bytes for a run's outputs, and a block a run (up
+// to kMaxHashBlocks).
+struct HashLaunch {
+  int run = 0;
+  int stage_bytes = 0;
+  int smem = 0;
+  unsigned grid = 0;
+  FastMod rows{}, slots{};
+};
+
+// out_per_kmer: kernel I's output bytes a k-mer, 0 for kernel J.  A run
+// stays under kRunBytes of k-mers and kOutRunBytes of outputs, and holds
+// at least one k-mer, so the stages grow with k only past kRunBytes;
+// shared memory beyond the card's refuses the launch.  The moduli: m
+// (classic), or the tiles and tile_rows (blocked).
+template <typename Kernel>
+int plan_hash(Kernel kernel, int64_t K, int k, int64_t out_per_kmer, int mode, int m,
+              int tile_rows, HashLaunch& p) {
+  int64_t run = kHashThreads;
+  if (k > 0) run = std::min<int64_t>(run, std::max<int64_t>(1, kRunBytes / k));
+  if (out_per_kmer > 0) {
+    run = std::min<int64_t>(run, std::max<int64_t>(1, kOutRunBytes / out_per_kmer));
+  }
+  // the pad, up to 15 bytes of offset and of the last chunk, 8 bytes of reads past it
+  const int64_t stage = (run * k + 64 + 15) / 16 * 16;
+  const int64_t out_bytes = out_per_kmer > 0 ? (run * out_per_kmer + 16 + 15) / 16 * 16 : 0;
+  const int64_t smem = kStages * stage + out_bytes;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p.run = static_cast<int>(run);
+  p.stage_bytes = static_cast<int>(stage);
+  p.smem = static_cast<int>(smem);
+  p.grid = static_cast<unsigned>(std::min<int64_t>((K + run - 1) / run, kMaxHashBlocks));
+  const bool blocked = mode == kOutBlocked;
+  p.rows = fast_mod(static_cast<unsigned>(blocked ? std::max(1, m / tile_rows) : m));
+  p.slots = fast_mod(static_cast<unsigned>(tile_rows));
+  return static_cast<int>(cudaSuccess);
+}
+
+template <int kMode>
+int launch_kmer_rows(const void* kmers, int64_t K, int k, bool canonical, const void* seeds,
+                     int nseeds, int m, int tile_rows, void* out, cudaStream_t stream) {
+  const int64_t out_per_kmer =
+      kMode == kOutCanonical ? k : 4 * static_cast<int64_t>(kMode == kOutBlocked ? nseeds - 1 : nseeds);
+  HashLaunch p;
+  const int err = plan_hash(kmer_rows_kernel<kMode>, K, k, out_per_kmer, kMode, m, tile_rows, p);
+  if (err != 0) return err;
+  kmer_rows_kernel<kMode><<<p.grid, kHashThreads, p.smem, stream>>>(
+      static_cast<const uint8_t*>(kmers), K, k, canonical, static_cast<const uint32_t*>(seeds),
+      nseeds, p.rows, p.slots, p.run, p.stage_bytes, static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kMode>
+int launch_bloom_scatter(const void* kmers, int64_t K, int k, const void* seeds, int nseeds,
+                         int m, int tile_rows, int64_t bloom_words, void* bloom,
+                         cudaStream_t stream) {
+  HashLaunch p;
+  const int err = plan_hash(bloom_scatter_kernel<kMode>, K, k, 0, kMode, m, tile_rows, p);
+  if (err != 0) return err;
+  bloom_scatter_kernel<kMode><<<p.grid, kHashThreads, p.smem, stream>>>(
+      static_cast<const uint8_t*>(kmers), K, k, static_cast<const uint32_t*>(seeds), nseeds,
+      p.rows, p.slots, p.run, p.stage_bytes, bloom_words, static_cast<unsigned*>(bloom));
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kTrWords = 16;            // bloom words (32 bit positions each) of a block
@@ -1947,6 +2269,10 @@ int seq_streams_cut(const void* seqs, int B, int L, const void* lens, int k, int
 // out int32[K, nseeds - 1], the blocked rows (seed 0 the tile, the others
 // the slots); 3: out uint8[K, k], the canonical k-mers (seeds unused).
 // canonical: hash each k-mer's canonical form.  1 <= m, tile_rows < 2^31.
+// kmers may start at any address.  The kStages stages of a run (at least
+// one k-mer) and a run's outputs must fit a block's shared memory, or the
+// launch returns cudaErrorInvalidValue: on an H100 at kStages = 2, k up
+// to about 77,000 for mode 3 and 116,000 for J.
 int kmer_rows(const void* kmers, int64_t K, int k, int canonical, const void* seeds, int nseeds,
               int mode, int m, int tile_rows, void* out, void* stream) {
   if (K < 0 || k < 0 || nseeds < 0 || m < 1 || tile_rows < 1 ||
@@ -1955,20 +2281,15 @@ int kmer_rows(const void* kmers, int64_t K, int k, int canonical, const void* se
   }
   if (K == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = hash_grid(K);
-  const auto* src = static_cast<const uint8_t*>(kmers);
-  const auto* sd = static_cast<const uint32_t*>(seeds);
   switch (mode) {
-#define KMER_ROWS(MODE)                                                                      \
-  case MODE:                                                                                 \
-    kmer_rows_kernel<MODE><<<grid, kHashThreads, 0, s>>>(src, K, k, canonical != 0, sd, nseeds, \
-                                                          m, tile_rows, out);                \
-    break;
+#define KMER_ROWS(MODE)                                                                   \
+  case MODE:                                                                              \
+    return launch_kmer_rows<MODE>(kmers, K, k, canonical != 0, seeds, nseeds, m, tile_rows, \
+                                  out, s);
     KMER_ROWS(kOutHashes) KMER_ROWS(kOutClassic) KMER_ROWS(kOutBlocked) KMER_ROWS(kOutCanonical)
 #undef KMER_ROWS
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // kmers uint8[K, k]; seeds uint32[nseeds]; mode 1 (classic) or 2
@@ -1982,22 +2303,15 @@ int bloom_scatter(const void* kmers, int64_t K, int k, const void* seeds, int ns
   }
   if (K == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = hash_grid(K);
-  const auto* src = static_cast<const uint8_t*>(kmers);
-  const auto* sd = static_cast<const uint32_t*>(seeds);
-  auto* dst = static_cast<unsigned*>(bloom);
   switch (mode) {
     case kOutClassic:
-      bloom_scatter_kernel<kOutClassic><<<grid, kHashThreads, 0, s>>>(
-          src, K, k, sd, nseeds, m, tile_rows, bloom_words, dst);
-      break;
+      return launch_bloom_scatter<kOutClassic>(kmers, K, k, seeds, nseeds, m, tile_rows,
+                                               bloom_words, bloom, s);
     case kOutBlocked:
-      bloom_scatter_kernel<kOutBlocked><<<grid, kHashThreads, 0, s>>>(
-          src, K, k, sd, nseeds, m, tile_rows, bloom_words, dst);
-      break;
+      return launch_bloom_scatter<kOutBlocked>(kmers, K, k, seeds, nseeds, m, tile_rows,
+                                               bloom_words, bloom, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // blooms uint32[N, MW]; words uint32[m, W], W = ceil(N / 32);

@@ -141,7 +141,12 @@ k-mers each), the shape of bench.py.  Phases:
    version (ops/build.py) on one sample of KMERS_PER_SAMPLE distinct
    31-mers of a random genome (classic and blocked/32, m = 2.5e7, h = 3)
    and at small m, and 256 copies of one k-mer; kernel K
-   (bloom_transpose) at N 1 to 4,096 (W 1 to 128) and m 1,000 to 70,001.
+   (bloom_transpose) at N 1 to 4,096 (W 1 to 128) and m 1,000 to 70,001;
+   then I and J at the edges of their staged reader: k 31, 63, 64, 100
+   and 10,000, K 1, 255, 256, 257 and 4,097, views x[1:] and x[3:] whose
+   bytes start off a 16-byte boundary, all-N, lowercase and palindromic
+   k-mers in one run with ordinary ones, blocked J at tile_rows 24 and
+   64, and at full size sample[1:], sample[3:] and a slice of the batch.
    Then, the launch counts set to 0: the full query step
    (ops/lookup.py:make_full_query_step, kernels I then A) on the classic
    words and that batch, whose counts must be kernel A's on the facade's
@@ -151,7 +156,8 @@ k-mers each), the shape of bench.py.  Phases:
    tile_rows 32 -> the transposed cols (the 1,024 blooms) ->
    device_transpose (K), which must give the words back bit for bit.
    I, A, J, K and D must have launched, and no other.  Times on CUDA
-   events with a cold L2: I, the full step, J (both layouts) and K beside
+   events with a cold L2: I, the full step, J (both layouts; J classic
+   split by I on the sample, which is J without its atomics) and K beside
    their plain versions and bounds (K on a slice first held to its plain
    version), and K beside a torch copy_ of the blooms.  Phase 10 also
    prints each row-major index's host part split by the facade's spans
@@ -2047,6 +2053,94 @@ def build_checks(gen, rng, errors: Errors, sample) -> int:
     return cases
 
 
+READER_LENGTHS = (31, 63, 64, 100)  # k: runs of 128 k-mers, fewer past 64 bytes
+READER_COUNTS = (1, 255, 256, 257, 4097)  # K around runs' ends (128 k-mers a run)
+READER_OFFSETS = (0, 1, 3)  # views x[o:], whose bytes start o * k past x's
+LONG_K = 10_000  # past a run's 8,192 bytes: one k-mer a run
+
+
+def mixed_kmers(rng, n: int, k: int) -> np.ndarray:
+    """n k-mers of k bytes, ordinary ACGT ones mixed with all-N ones,
+    ones of N and lowercase bytes, and reverse-complement palindromes (an
+    N in the middle at odd k), so that each kind shares a run with the
+    others: uint8[n, k]."""
+    out = acgt(rng, (n, k))
+    kind = rng.integers(0, 8, n)  # 0: all N, 1: N and lowercase, 2-3: palindrome
+    out[kind == 0] = ord("N")
+    odd = np.frombuffer(b"ACGTNacgtn", dtype=np.uint8)
+    out[kind == 1] = odd[rng.integers(0, 10, (int((kind == 1).sum()), k))]
+    pal = np.nonzero(kind >= 2)[0][: n // 4]
+    half = acgt(rng, (pal.size, k // 2))
+    mid = np.full((pal.size, k % 2), ord("N"), dtype=np.uint8)
+    out[pal] = np.concatenate([half, mid, np.stack([revcomp(x) for x in half])
+                               if pal.size else half], axis=1)
+    return out
+
+
+def reader_case(errors: Errors, km, what: str, full: bool = True) -> int:
+    """Kernels I and J against their plain versions on the k-mers ``km``
+    (any view): I's raw hashes, classic rows with and without canonical
+    forms, blocked/32 rows and canonical bytes; J classic and blocked at
+    tile_rows 32, 64 and 24 (24 and 64 also below m's first tile).
+    ``full`` False keeps I's canonical classic rows and bytes and J's four
+    full-m blooms.  -> the number of cases."""
+    import torch
+
+    from bigsi_tpu_torch.ops import build, fused_lookup as fl
+    from bigsi_tpu_torch.ops import hash as kmer_hash
+
+    def seeds(values):
+        return kmer_hash.seed_tensor(list(values), km.device)
+
+    i_cases = ((seeds(range(H)), "classic", True, M, 1), (seeds(()), "canonical", False, 1, 1))
+    if full:
+        i_cases += ((seeds([0, 1, 99, 2**32 - 1]), "hashes", False, 1, 1),
+                    (seeds(range(H)), "classic", False, M, 1),
+                    (seeds(range(H + 1)), "blocked", True, M, 32))
+    for s, out, canonical, m, tile_rows in i_cases:
+        errors.compare("kmer_rows", (fl.kmer_rows(km, s, out, canonical=canonical, m=m,
+                                                  tile_rows=tile_rows),),
+                       (kmer_hash.kmer_rows_plain(km, s, out, canonical, m, tile_rows),),
+                       "%s %s canonical=%s" % (what, out, canonical))
+    j_cases = (("classic", M, 1), ("blocked", M, 32), ("blocked", M, 64), ("blocked", M, 24))
+    if full:
+        j_cases += (("blocked", 1000, 24), ("blocked", 20, 64))
+    for layout, m, tile_rows in j_cases:
+        s = seeds(range(H + 1 if layout == "blocked" else H))
+        errors.compare("bloom_scatter", (fl.bloom_scatter(km, s, layout, m, tile_rows),),
+                       (build.bloom_plain(km, s, layout, m, tile_rows),),
+                       "%s %s m=%d tile_rows=%d" % (what, layout, m, tile_rows))
+    return len(i_cases) + len(j_cases)
+
+
+def reader_checks(rng, errors: Errors, sample, batch) -> int:
+    """Kernels I and J at the staged reader's edges, bit for bit: k 31,
+    63, 64 and 100 (and one k of LONG_K bytes), K 1, 255, 256, 257 and
+    4,097, views starting 0, 1 and 3 k-mers in (bytes not 16-byte
+    aligned), all-N, lowercase and palindromic k-mers in one run with
+    ordinary ones; then the sample's views sample[1:] and sample[3:] and a
+    slice of the classic batch at full size.  -> the number of cases."""
+    import torch
+
+    cases = 0
+    for k in READER_LENGTHS:
+        mat = torch.from_numpy(mixed_kmers(rng, max(READER_COUNTS) + max(READER_OFFSETS), k))
+        mat = mat.to(DEVICE)
+        for n in READER_COUNTS:
+            for off in READER_OFFSETS:
+                km = mat[off:off + n]
+                cases += reader_case(errors, km, "k=%d K=%d x[%d:] (data_ptr %% 16 = %d)"
+                                     % (k, n, off, km.data_ptr() % 16))
+    long = torch.from_numpy(mixed_kmers(rng, 6, LONG_K)).to(DEVICE)[1:]
+    cases += reader_case(errors, long, "k=%d K=5 x[1:]" % LONG_K, full=False)
+    for what, km in (("sample[1:]", sample[1:]), ("sample[3:]", sample[3:]),
+                     ("the classic batch's k-mers [5:100005]", batch[5:100_005])):
+        check(km.data_ptr() % 16 != 0, "%s starts off a 16-byte boundary" % what)
+        cases += reader_case(errors, km, what, full=False)
+    torch.cuda.synchronize()
+    return cases
+
+
 def phase_build_ops(number: int, gpu: str, runs, gen, rng, errors: Errors,
                     fns) -> tuple[dict, dict]:
     """Hashing and the device build at full width: kernel I's cases, the
@@ -2092,9 +2186,12 @@ def phase_build_ops(number: int, gpu: str, runs, gen, rng, errors: Errors,
         check(torch.equal(got.cpu(), want), "entry() on the card equals its plain run")
     sample = torch.from_numpy(sample_kmers(rng, KMERS_PER_SAMPLE)).to(DEVICE)
     cases += build_checks(gen, rng, errors, sample) + 2
+    edges = reader_checks(rng, errors, sample, i_args[0])
     print("phase %d hashing and build: kmer_rows, bloom_scatter and bloom_transpose bit-exact "
-          "with their plain versions in %d cases; I's rows are the facade's; entry() equals "
-          "its plain run" % (number, cases), flush=True)
+          "with their plain versions in %d cases, %d of them at the staged reader's edges "
+          "(unaligned views, K and k around a run, mixed k-mers, tile_rows 24 and 64); I's "
+          "rows are the facade's; entry() equals its plain run"
+          % (number, cases + edges, edges), flush=True)
 
     # the main path, its launches counted
     for fn_k in fns.values():
@@ -2143,6 +2240,9 @@ def phase_build_ops(number: int, gpu: str, runs, gen, rng, errors: Errors,
     j_bytes = bound_bytes("bloom_scatter", sample, blooms_j["classic"])
     record(kernel_ms, "bloom_scatter", j_ms, j_plain, j_bytes)
     jb_ms = cuda_ms(lambda: build.device_bloom(sample, m=M, h=H, layout="blocked"), 10, DEVICE)
+    # I on the sample does J's reads and hashing but not its atomics (it writes its rows)
+    ij_ms = cuda_ms(lambda: fl.kmer_rows(sample, j_seeds, "classic", canonical=True, m=M), 10,
+                    DEVICE)
     sl = blooms[:, :4096].contiguous()
     errors.compare("bloom_transpose", (fl.bloom_transpose(sl, sl.shape[1] * 32),),
                    (build.transpose_plain(sl, sl.shape[1] * 32),),
@@ -2164,10 +2264,13 @@ def phase_build_ops(number: int, gpu: str, runs, gen, rng, errors: Errors,
         print("phase %d times %s [%s]: %.4f ms vs plain PyTorch %.4f ms; bound %.4f ms by "
               "bytes (%.2f MB), %.3f of bound" % (number, what, gpu, ms, p_ms, bound_ms(moved),
                                                    moved / 1e6, bound_ms(moved) / ms), flush=True)
-    print("phase %d times [%s]: bloom_scatter blocked/32 %.4f ms; bloom_transpose beside a torch "
-          "copy_ of its %.1f MB of blooms %.4f ms (K / copy %.3f); the phase took %.1f s"
-          % (number, gpu, jb_ms, nbytes(words) / 1e6, floor, k_ms / floor,
-             time.perf_counter() - t0), flush=True)
+    print("phase %d times [%s]: bloom_scatter classic %.4f ms = hashing (kmer_rows on the same "
+          "%d k-mers, classic rows, canonical) %.4f ms + atomics %.4f ms; blocked/32 %.4f ms"
+          % (number, gpu, j_ms, KMERS_PER_SAMPLE, ij_ms, j_ms - ij_ms, jb_ms), flush=True)
+    print("phase %d times [%s]: bloom_transpose beside a torch copy_ of its %.1f MB of blooms "
+          "%.4f ms (K / copy %.3f); the phase took %.1f s"
+          % (number, gpu, nbytes(words) / 1e6, floor, k_ms / floor, time.perf_counter() - t0),
+          flush=True)
     return kernel_ms, counted
 
 

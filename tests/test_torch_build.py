@@ -65,6 +65,55 @@ def test_blocked_bloom_below_tile_rows_matches_jax(m, tile_rows):
         got.numpy(), jax_bloom(kmers, m=m, h=3, layout="blocked", tile_rows=tile_rows))
 
 
+def mixed_kmers(rng, n, k):
+    """n k-mers: ordinary ACGT ones among all-N ones, ones of N and
+    lowercase bytes, and reverse-complement palindromes (an N in the
+    middle at odd k), interleaved so each kind shares a run of kernel J
+    (128 k-mers) with the others."""
+    odd = np.frombuffer(b"ACGTNacgtn", dtype=np.uint8)
+    comp = np.arange(256, dtype=np.uint8)
+    comp[ACGT] = np.frombuffer(b"TGCA", dtype=np.uint8)
+    out = random_kmers(rng, k, n)
+    kind = rng.integers(0, 8, n)
+    out[kind == 0] = ord("N")
+    out[kind == 1] = odd[rng.integers(0, 10, size=(int((kind == 1).sum()), k))]
+    for i in np.nonzero(kind >= 6)[0]:
+        half = random_kmers(rng, k // 2, 1)[0]
+        out[i] = np.concatenate([half, np.full(k % 2, ord("N"), np.uint8), comp[half[::-1]]])
+    return out
+
+
+@pytest.mark.parametrize("layout, m, tile_rows", [
+    ("classic", 100_003, 1), ("blocked", 100_003, 32), ("blocked", 100_003, 64),
+    ("blocked", 100_003, 24), ("blocked", 20, 24)])
+@pytest.mark.parametrize("k, n", [(31, 255), (31, 256), (31, 257), (31, 4097), (63, 257),
+                                  (64, 256), (100, 255)])
+def test_device_bloom_reader_edges_match_jax(layout, m, tile_rows, k, n):
+    """Kernel J's contract where its staged reader's runs (128 k-mers, 81
+    at k = 100) end, on mixed N, lowercase and palindromic
+    k-mers; tile_rows 24 and 64, which do not divide 32 (a k-mer's rows
+    may span two bloom words), 24 also above m (rows in [m, 32) kept)."""
+    kmers = mixed_kmers(np.random.default_rng(n + k + tile_rows), n, k)
+    got = device_bloom(kmers, m=m, h=3, layout=layout, tile_rows=tile_rows, device="cpu")
+    np.testing.assert_array_equal(
+        got.numpy(), jax_bloom(kmers, m=m, h=3, layout=layout, tile_rows=tile_rows))
+
+
+@pytest.mark.parametrize("layout, tile_rows", [("classic", 1), ("blocked", 32), ("blocked", 24)])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_device_bloom_of_offset_views(layout, tile_rows, offset):
+    """x[1:] and x[3:] of 31-mers: views whose bytes start off a 16-byte
+    boundary give the bloom of their rows, as JAX and the host build do."""
+    kmers = random_kmers(np.random.default_rng(offset), 31, 700)
+    view = torch.from_numpy(kmers)[offset:]
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    got = device_bloom(view, m=4096, h=3, layout=layout, tile_rows=tile_rows)
+    np.testing.assert_array_equal(
+        got.numpy(), jax_bloom(kmers[offset:], m=4096, h=3, layout=layout, tile_rows=tile_rows))
+    np.testing.assert_array_equal(got.numpy(),
+                                  host_bloom(kmers[offset:], 4096, 3, layout, tile_rows))
+
+
 @pytest.mark.parametrize("layout", ["classic", "blocked"])
 def test_device_bloom_256_duplicate_kmers(layout):
     """A k-mer repeated 256 times still sets its bits: the scatter is a

@@ -169,7 +169,7 @@ def test_canonical_rows_in_one_launch(k):
 # -- blocked rows ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("tile_rows", [8, 32, 64])
+@pytest.mark.parametrize("tile_rows", [8, 24, 32, 64])
 @pytest.mark.parametrize("m", [5, 20, 1000, 100_003, 25_000_000])
 @pytest.mark.parametrize("h", [1, 3, 8])
 def test_blocked_rows_match_scheme(tile_rows, m, h):
@@ -182,6 +182,73 @@ def test_blocked_rows_match_scheme(tile_rows, m, h):
     got = kh.blocked_row_indices(kmers, h, m, tile_rows, device="cpu")
     want = scheme_row_indices(kmers, h, m, "blocked", tile_rows)
     np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+
+
+# -- the staged reader's edges ---------------------------------------------------
+# Kernel I reads runs of up to 128 consecutive k-mers (8,192 bytes) from
+# any byte address; these hold its contract (the plain version here) to
+# JAX and the host hashers where a run or a view's alignment could slip.
+
+ODD = np.frombuffer(b"ACGTNacgtn", dtype=np.uint8)
+
+
+def mixed_kmers(rng, n: int, k: int) -> np.ndarray:
+    """n k-mers: ordinary ACGT ones among all-N ones, ones of N and
+    lowercase bytes, and reverse-complement palindromes (an N in the
+    middle at odd k), interleaved so each kind shares a run with the
+    others."""
+    out = ACGT[rng.integers(0, 4, size=(n, k))]
+    kind = rng.integers(0, 8, n)
+    out[kind == 0] = ord("N")
+    out[kind == 1] = ODD[rng.integers(0, 10, size=(int((kind == 1).sum()), k))]
+    for i in np.nonzero(kind >= 6)[0]:
+        half = ACGT[rng.integers(0, 4, k // 2)]
+        out[i] = np.concatenate([half, np.full(k % 2, ord("N"), np.uint8), revcomp(half)])
+    return out
+
+
+def assert_kmer_rows_match_jax(kmers: np.ndarray, t: torch.Tensor):
+    """Every output of kmer_rows on ``t`` (the rows of ``kmers``, maybe a
+    view) equal to JAX's: canonical bytes, raw hashes, canonical classic
+    rows (and the host's rows of the canonical k-mers)."""
+    canon = np.asarray(canonicalize_jax(jnp.asarray(kmers)))
+    got = fused_lookup.kmer_rows(t, torch.empty(0, dtype=torch.int32), "canonical")
+    np.testing.assert_array_equal(got.numpy(), canon)
+    np.testing.assert_array_equal(got.numpy(), jax_pkg_canonicalize(kmers))
+    seeds = np.array([0, 1, 99, 2**32 - 1], dtype=np.uint32)
+    got = fused_lookup.kmer_rows(t, kh.seed_tensor(seeds, "cpu"), "hashes")
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(murmur3_32_jax(jnp.asarray(kmers), jnp.asarray(seeds))))
+    m = 25_000_000
+    got = fused_lookup.kmer_rows(t, torch.arange(3, dtype=torch.int32), "classic",
+                                 canonical=True, m=m)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(row_indices_jax(jnp.asarray(canon), 3, m)))
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), hash_kmer_matrix(canon, 3, m))
+
+
+@pytest.mark.parametrize("n", [255, 256, 257, 4097])
+@pytest.mark.parametrize("k", [31, 63, 64, 100])
+def test_reader_edges_match_jax_and_host(k, n):
+    """K around runs' ends (128 k-mers a run at k 31, 63 and 64, 81 at
+    k = 100), mixed N, lowercase and palindromic k-mers in one run; each
+    palindrome is its own canonical form."""
+    kmers = mixed_kmers(np.random.default_rng(1000 * k + n), n, k)
+    assert_kmer_rows_match_jax(kmers, cpu(kmers))
+    canon = kh.canonicalize(kmers, device="cpu").numpy()
+    pal = np.array([np.array_equal(revcomp(x), x) for x in kmers])
+    assert pal.sum() > n // 16
+    np.testing.assert_array_equal(canon[pal], kmers[pal])
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("k", [31, 100])
+def test_offset_views_match_jax(offset, k):
+    """x[1:] and x[3:]: contiguous views whose bytes start offset * k bytes
+    into x, off a 16-byte boundary; the wrapper takes them as they are."""
+    base = mixed_kmers(np.random.default_rng(offset + k), 600, k)
+    t = cpu(base)[offset:]
+    assert t.is_contiguous() and t.data_ptr() % 16 != 0
+    assert_kmer_rows_match_jax(base[offset:], t)
 
 
 # -- the wrapper's checks ----------------------------------------------------------
@@ -209,6 +276,25 @@ def test_kmer_rows_refuses_bad_arguments():
         fused_lookup.kmer_rows(km, seeds[:0], "blocked", m=100, tile_rows=8)
     with pytest.raises(ValueError):
         fused_lookup.kmer_rows(km.t(), seeds, "classic", m=100)  # not contiguous
+
+
+def test_wrappers_refuse_non_contiguous_and_take_offset_views():
+    """Kernels I and J take a contiguous uint8[K, k] from any byte address
+    (a view such as x[3:]) and refuse a strided one."""
+    kmers = cpu(mixed_kmers(np.random.default_rng(5), 300, 31))
+    seeds = torch.arange(3, dtype=torch.int32)
+    for bad in (kmers[::2], kmers[:, 1:], kmers[:31].t()):
+        with pytest.raises(ValueError, match="contiguous"):
+            fused_lookup.kmer_rows(bad, seeds, "classic", m=1000)
+        with pytest.raises(ValueError, match="contiguous"):
+            fused_lookup.bloom_scatter(bad, seeds, "classic", 1000)
+    view = kmers[3:]
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    for out in ("hashes", "classic", "canonical"):
+        assert torch.equal(fused_lookup.kmer_rows(view, seeds, out, canonical=True, m=1000),
+                           fused_lookup.kmer_rows(view.clone(), seeds, out, canonical=True, m=1000))
+    assert torch.equal(fused_lookup.bloom_scatter(view, seeds, "classic", 1000),
+                       fused_lookup.bloom_scatter(view.clone(), seeds, "classic", 1000))
 
 
 def test_empty_inputs():

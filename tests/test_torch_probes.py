@@ -316,6 +316,8 @@ ENTRY_POINTS = {
                  "--samples", "40", "--reps", "1"],
     "probe_pack": ["bigsi_tpu_torch.scripts.probe_pack", "--device", "cpu", "--m", "20000",
                    "--samples", "40", "--reps", "1"],
+    "probe_ij": ["bigsi_tpu_torch.scripts.probe_ij", "--device", "cpu", "--batch", "2000",
+                 "--kmers", "5000", "--m", "100000", "--reps", "1"],
 }
 
 
@@ -332,6 +334,23 @@ def test_entry_point_runs_on_the_cpu_without_jax(name, tmp_path):
     lines = proc.stdout.strip().splitlines()
     assert json.loads(lines[-1]) == {"jax_loaded": False}
     assert any("host clock" in line for line in lines)
+
+
+def test_probe_ij_split_refuses_the_cpu(tmp_path):
+    proc = run_entry_point(["bigsi_tpu_torch.scripts.probe_ij_split", "--reps", "1"], tmp_path)
+    assert proc.returncode != 0 and "needs a CUDA device" in proc.stderr
+
+
+def test_probe_ij_split_cuts_apply_to_the_source():
+    """Each cut of probe_ij_split matches kernels I's and J's source
+    exactly once (a stale cut would time another kernel than it names)."""
+    from bigsi_tpu_torch.scripts import probe_ij_split
+
+    text = probe_ij_split.SOURCE.read_text()
+    for name in probe_ij_split.CUTS:
+        assert (probe_ij_split.cut_source(name, text) == text) == (name == "full")
+    with pytest.raises(RuntimeError, match="matches 0 times"):
+        probe_ij_split.cut_source("one_word", "no such source")
 
 
 def test_bisect_compile_refuses_the_cpu(tmp_path):
