@@ -22,7 +22,12 @@ This is bigsi_tpu's facade with the port's engine seam: the config's
   (:class:`~bigsi_tpu_torch.index.device_engine.DeviceEngine`, on
   ``device``, CUDA unless given);
 * ``numpy``: the host engine;
-* anything else is refused: the JAX engines are not part of the port.
+* ``mesh``: the sharded mesh engine
+  (:class:`~bigsi_tpu_torch.parallel.sharding.MeshEngine`) over ``mesh:
+  [d, k, s(, r)]``, its positions on the CUDA devices or all on
+  ``device`` where one is given;
+* anything else is refused: the JAX engines are not part of the port,
+  and ``distributed`` is not ported yet.
 
 A screened (verified) index answers as a classic one (bigsi_tpu's
 two-stage search, :mod:`bigsi_tpu_torch.index.verify`): the config's
@@ -813,10 +818,21 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
 def engine_factory_for(config: dict, device=None):
     """The compute engine of ``config["engine"]``: unset is the CUDA
     engine on ``device`` (CUDA unless given), ``"numpy"`` the host
-    engine; anything else raises."""
+    engine, ``"mesh"`` the sharded mesh engine over ``config["mesh"]``
+    (``[d, k, s(, r)]``; its positions on the CUDA devices, or all on
+    ``device`` where one is given); anything else raises."""
     engine = config.get("engine")
     if engine == "numpy":
         return HostEngine
+    if engine == "mesh":
+        from bigsi_tpu_torch.parallel.sharding import mesh_engine_factory
+
+        return mesh_engine_factory(config.get("mesh"), device)
+    if engine == "distributed":
+        raise ValueError(
+            "engine 'distributed' (multi-process serving) is not ported to "
+            "bigsi_tpu_torch yet: see ROADMAP.md, queue 1 item 2"
+        )
     if engine is not None:
         raise ValueError(
             "engine %r is not part of bigsi_tpu_torch: leave 'engine' unset "

@@ -85,10 +85,11 @@ SEQ_MAX_NK = 4096
 SEQ_QUAD_WORK_BUDGET = 256 * 1024 * 1024
 
 
-def seq_batch_geometry(seqs, lens, k: int, window: int):
+def seq_batch_geometry(seqs, lens, k: int, window: int, db: int = 1):
     """The JAX engine's bucketing and guards for ``counts_batch_seqs``:
-    64-byte length buckets, a power-of-two batch bucket (at least 8),
-    the quadratic-work guard and the grouped-entry budget.  Returns None
+    64-byte length buckets, a power-of-two batch bucket (at least 8)
+    rounded up to a multiple of ``db`` (a mesh's batch axis), the
+    quadratic-work guard and the grouped-entry budget.  Returns None
     when the batch must take a host path, else (padded uint8[BB, LB],
     lens int32[BB], lb, u_cap); padding bytes are ``A`` and padding
     queries have length 0."""
@@ -97,6 +98,7 @@ def seq_batch_geometry(seqs, lens, k: int, window: int):
     bb = 8
     while bb < b:
         bb *= 2
+    bb = -(-bb // db) * db
     nk = lb - k + 1
     if nk > SEQ_MAX_NK:
         return None
@@ -138,38 +140,53 @@ def device_fits(nbytes: int, device: torch.device) -> bool:
     return nbytes + VERIFY_HEADROOM <= free + cached
 
 
-def load_words(words: np.ndarray, device, tile_rows: int | None = None) -> torch.Tensor:
+def load_words(
+    words: np.ndarray, device, tile_rows: int | None = None, shape: tuple | None = None
+) -> torch.Tensor:
     """The JAX package's matrix (``BitSliceMatrix.words``, numpy
-    uint32[m, W] in RAM or mmap) -> int32[m_pad, W] on ``device``
-    holding the same bits.  With ``tile_rows``, m_pad rounds m up to
-    whole tiles and the added rows are zero.  Copied in row chunks, so a
-    mmap'd matrix never has a second full copy in host RAM."""
+    uint32[m, W] in RAM or mmap, or a view of it) -> int32[m_pad, W] on
+    ``device`` holding the same bits.  With ``tile_rows``, m_pad rounds m
+    up to whole tiles and the added rows are zero.  ``shape`` (rows,
+    words), at least that, makes the output larger, the added rows and
+    words zero: a mesh's shard.  Copied in row chunks, so a mmap'd
+    matrix (or a column slice of it) never has a second full copy in
+    host RAM."""
     if words.ndim != 2 or words.dtype != np.uint32:
         raise ValueError("words must be uint32 [m, W]")
     m, w = words.shape
     m_pad = m if tile_rows is None else -(-m // tile_rows) * tile_rows
-    out = torch.empty((m_pad, w), dtype=torch.int32, device=device)
+    rows, width = shape or (m_pad, w)
+    if rows < m_pad or width < w:
+        raise ValueError("shape %s is smaller than the matrix's %s" % ((rows, width), (m_pad, w)))
+    out = torch.empty((rows, width), dtype=torch.int32, device=device)
     out[m:].zero_()
+    out[:m, w:].zero_()
     for r0 in range(0, m, LOAD_CHUNK_ROWS):
         chunk = np.array(words[r0 : r0 + LOAD_CHUNK_ROWS]).view(np.int32)
-        out[r0 : r0 + chunk.shape[0]].copy_(torch.from_numpy(chunk))
+        out[r0 : r0 + chunk.shape[0], :w].copy_(torch.from_numpy(chunk))
     return out
 
 
-def load_cols(words: np.ndarray, device, tile_rows: int) -> torch.Tensor:
-    """The JAX package's matrix (numpy uint32[m, W]) -> its cols layout on
-    ``device`` (kernel D's output over the matrix zero-padded to whole
-    tiles), built chunk by chunk so the row-major matrix is never whole
-    on the device.  cols is allocated first; then each chunk of whole
-    tiles (about LOAD_CHUNK_ROWS rows) is copied into a host staging
-    buffer, on to a device staging buffer and packed into its slice of
-    cols.  On CUDA the host buffers are pinned and there are two of each:
+def load_cols(words: np.ndarray, device, tile_rows: int, width: int | None = None) -> torch.Tensor:
+    """The JAX package's matrix (numpy uint32[m, W], or a view of it) ->
+    its cols layout on ``device`` (kernel D's output over the matrix
+    zero-padded to whole tiles, and to ``width`` words where that is
+    given: a mesh's shard), built chunk by chunk so the row-major matrix
+    is never whole on the device.  cols is allocated first; then each
+    chunk of whole tiles (about LOAD_CHUNK_ROWS rows) is copied into a
+    host staging buffer, on to a device staging buffer and packed into
+    its slice of cols.  On CUDA the host buffers are pinned and there are
+    two of each:
     a copy stream brings chunk i + 1 while the current stream packs chunk
     i, events ordering each buffer's reuse.  The load's device peak is
     cols plus two chunks."""
     if words.ndim != 2 or words.dtype != np.uint32:
         raise ValueError("words must be uint32 [m, W]")
     m, w = words.shape
+    if width is not None:
+        if width < w:
+            raise ValueError("width %d is narrower than the matrix's %d words" % (width, w))
+        w = width
     num_tiles = -(-m // tile_rows)
     cols = torch.empty((num_tiles, w * 32), dtype=plain.cols_dtype(tile_rows), device=device)
     chunk_tiles = max(1, LOAD_CHUNK_ROWS // tile_rows)
@@ -208,13 +225,15 @@ def load_cols(words: np.ndarray, device, tile_rows: int) -> torch.Tensor:
 
 
 def stage_rows(words: np.ndarray, r0: int, r1: int, buf: torch.Tensor) -> torch.Tensor:
-    """Rows [r0, r1) of ``words`` (uint32, rows past its end read as
-    zero) into the first r1 - r0 rows of the int32 staging ``buf``;
-    returns that slice."""
+    """Rows [r0, r1) of ``words`` (uint32, rows past its end and words
+    past its width read as zero) into the first r1 - r0 rows of the
+    int32 staging ``buf``; returns that slice."""
     out = buf[: r1 - r0]
     host = out.numpy().view(np.uint32)
     n = max(0, min(r1, words.shape[0]) - r0)
-    host[:n] = words[r0 : r0 + n]
+    w = words.shape[1]
+    host[:n, :w] = words[r0 : r0 + n]
+    host[:n, w:] = 0
     host[n:] = 0
     return out
 

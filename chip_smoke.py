@@ -61,8 +61,10 @@ k-mers each), the shape of bench.py.  Phases:
    rows.bin on the card (the staging time and device peak are printed),
    and from then on every verify, batched or single, runs on
    DeviceVerifier (kernel A, only the candidates' counts sent back).
-   Each runs a single search, a bulk_search of a 256-record FASTA
-   through the port's CLI at thresholds 1.0 and 0.7, and 3 GET, 1 POST
+   Each runs a single search, a scored search and a scored search_batch
+   of the 256 queries at 0.7 (their times printed), a bulk_search of a
+   256-record FASTA through the port's CLI at thresholds 1.0 and 0.7,
+   and 3 GET, 1 POST
    and a burst of 8 concurrent GETs (coalesced by the server's batcher)
    against the port's HTTP server.  The cols indexes also search a batch
    with one N base (the k-mer path), 8 queries of 4,000 bp (the seq arm)
@@ -163,12 +165,36 @@ k-mers each), the shape of bench.py.  Phases:
    prints each row-major index's host part split by the facade's spans
    (search.kmer_prep, search.hash, search.pad) and, beside the classic
    index's search.hash, kernel I on that batch's distinct k-mers with
-   and without their copy-in.
+   and without their copy-in;
+13. the mesh: the indexes of phases 4-9 reopened one at a time with
+   ``engine: mesh`` (bigsi_tpu_torch/parallel/sharding.py, the
+   single-controller MeshEngine) and every position on cuda:0: classic
+   on [2, 2, 2] (kernel A; the k-axis sum and exact AND) and [1, 1, 3]
+   (phantom samples, W 32 -> 33), blocked/32 on [2, 2, 2] (A over row
+   ids), minimizer/16 on [2, 1, 4] on the seq arm (H per batch shard,
+   E per position) and with supports_seq_batch off (E), minimizer/64 on
+   [2, 1, 2] (C) and [2, 1, 2, 2] (C over row slabs) and the verified
+   index's screen on [2, 1, 4] (E).  Each handle's search_batch of the
+   256 queries at 1.0 and 0.7, search of 542 bp and 20 kb at 1.0 and
+   0.7, and scored search and search_batch at 0.7 must equal the
+   single-device handle's result dicts; one search_batch must launch
+   its step's kernel once per position and no other; its load (wall
+   time, device peak under the shards plus staging), the median of 5
+   search_batch calls split by search.batch_counts beside the
+   single-device handle's, and A, C and E on the shards (W_l 16, 11 and
+   8 words) beside their plain versions and bounds are printed; A's
+   exact words of empty k-slices are all ones at one block a query and
+   split; dropping a handle frees its shards.  Then an interior insert
+   on a small [2, 2, 2] mesh index frees the old shards before the new
+   ones are placed, and dryrun_multichip(8, device="cuda:0") runs every
+   step once.  Only A, C, D, E and H may launch.
 
 Then a check that no module of bigsi_tpu or jax was loaded, one JSON
-line of the kernels (each with its time, its plain version's, the
-least time its bytes allow on an H100 (3.35 TB/s) for this run's
-inputs, and the one-call PyTorch yardstick where there is one), and
+line of the kernels (each with its launches on the main path, phase 13's
+included, its time, its plain version's, the least time its bytes allow
+on an H100 (3.35 TB/s) for this run's inputs, the one-call PyTorch
+yardstick where there is one, and for A, C and E their times on the mesh
+shards), and
 last the JSON line {"ok": true, "device": {...}}.  Any failure exits
 non-zero; with no CUDA device it exits 1 before printing any result.
 
@@ -178,6 +204,7 @@ Usage: python3 chip_smoke.py [--seed N]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import threading
@@ -1060,6 +1087,26 @@ def queries_in(method: str, args) -> int:
     return len(args[1]) - 1 if method == "counts_batch_kmers" else len(args[0])
 
 
+def scored_searches(name: str, port, oracles, q: str, seqs) -> dict:
+    """A scored search of ``q`` and a scored search_batch of ``seqs`` at
+    0.7 on ``port`` must equal every oracle's: -> {"search_ms", "batch_ms"
+    (host clock), "results": scored results of the batch}."""
+    t0 = time.perf_counter()
+    one = port.search(q, 0.7, score=True)
+    t1 = time.perf_counter()
+    batch = port.search_batch(seqs, 0.7, score=True)
+    t2 = time.perf_counter()
+    for oracle in oracles:
+        check(one == oracle.search(q, 0.7, score=True),
+              "%s scored search equals the host's" % name)
+        check(batch == oracle.search_batch(seqs, 0.7, score=True),
+              "%s scored search_batch equals the host's" % name)
+    results = sum(len(r) for r in batch)
+    check(results > 0 and all("kmer-presence" in d for r in batch for d in r),
+          "%s: the scored batch has scored results" % name)
+    return {"search_ms": (t1 - t0) * 1e3, "batch_ms": (t2 - t1) * 1e3, "results": results}
+
+
 def phase_slice(number: int, name: str, gen, rng):
     import yaml
 
@@ -1124,6 +1171,8 @@ def phase_slice(number: int, name: str, gen, rng):
     if verified:  # a single search verifies on the host: nothing staged yet
         check(port._verifier is None, "%s: single searches stage no verifier" % name)
         stage = timed_stage(port)
+    scored = scored_searches(name, port, oracles, q, seqs)
+    compared += 1 + len(seqs)
 
     # bulk_search of a FASTA through the port's CLI
     WORK.mkdir(parents=True, exist_ok=True)
@@ -1224,6 +1273,10 @@ def phase_slice(number: int, name: str, gen, rng):
           "(row-major words %.4f GB, cols %.4f GB)"
           % (number, name, load["s"], load["peak"] / 1e9, load["words"] / 1e9,
              load["cols"] / 1e9), flush=True)
+    print("phase %d scored %s: search(score=True) of %d bp at 0.7 %.3f ms, search_batch(score="
+          "True) of %d queries at 0.7 %.3f ms (host clock), %d scored results; equal to the "
+          "host engine's" % (number, name, QUERY_LEN, scored["search_ms"], B,
+                             scored["batch_ms"], scored["results"]), flush=True)
     if verified:
         print("phase %d verifier %s: rows.bin staged at the first batched verify in %.3f s, "
               "device peak %.4f GB (rows.bin %.4f GB)"
@@ -2274,6 +2327,362 @@ def phase_build_ops(number: int, gpu: str, runs, gen, rng, errors: Errors,
     return kernel_ms, counted
 
 
+# -- phase 13 -----------------------------------------------------------
+
+# the meshes of phase 13, one handle at a time: each reopens an index of
+# phases 4-9 with ``engine: mesh`` and ``mesh`` as given, every position
+# on one card (the single-controller engine takes repeated devices)
+MESHES = (
+    ("classic", [2, 2, 2]),  # kernel A; the k-axis sum and exact AND
+    ("classic", [1, 1, 3]),  # phantom samples: W 32 -> 33, W_l = 11
+    ("blocked/32", [2, 2, 2]),  # kernel A over the blocked row ids
+    (HEADLINE, [2, 1, 4]),  # the seq arm (H + E), then E alone
+    ("minimizer/64", [2, 1, 2]),  # kernel C
+    ("minimizer/64", [2, 1, 2, 2]),  # kernel C over row slabs
+    (VERIFIED, [2, 1, 4]),  # the screen (E); the verify stays on the host
+)
+MESH_KERNELS = ("classic_counts", "grouped_tile_counts", "pack_tile_cols", "cols_counts",
+                "seq_streams")
+MESH_DEVICE = "cuda:0"
+MESH_STEP_KERNELS = ("classic_counts", "grouped_tile_counts", "cols_counts", "seq_streams")
+LOAD_SLACK = 256 << 20  # device bytes a mesh load may hold beside its shards (staging)
+
+
+@contextlib.contextmanager
+def uncounted(fns):
+    """Launches inside the block do not count: the counts are put back
+    after it (comparisons with plain versions, the single-device
+    reference handles)."""
+    saved = {k: fn.launches for k, fn in fns.items()}
+    try:
+        yield
+    finally:
+        for k, fn in fns.items():
+            fn.launches = saved[k]
+
+
+def shard_tensors(engine) -> list:
+    shards = next(p for p in (engine.words, engine.cols, engine.tiles) if p is not None)
+    return list(shards.values())
+
+
+def mesh_launches(engine, seq: bool) -> dict:
+    """The launches of one search_batch on a mesh engine: its step's
+    kernel once per position (the seq arm: H once per batch shard on the
+    one card, then E once per position)."""
+    positions = engine.step_mesh.devices.size
+    if engine.words is not None:
+        return {"classic_counts": positions}
+    if engine.tiles is not None:
+        return {"grouped_tile_counts": positions}
+    if seq:
+        return {"seq_streams": engine.step_mesh.shape["d"], "cols_counts": positions}
+    return {"cols_counts": positions}
+
+
+def step_kernel_args(fns, run):
+    """Runs ``run()`` with the mesh steps' kernels recorded: -> (its
+    result, {kernel: (args, keyword args) of its first launch},
+    {kernel: launches})."""
+    from bigsi_tpu_torch.parallel import sharding
+
+    first = {}
+
+    def spy(name, real):
+        def call(*args, **kw):
+            first.setdefault(name, (args, kw))
+            return real(*args, **kw)
+        return call
+
+    before = {k: fn.launches for k, fn in fns.items()}
+    for name in MESH_STEP_KERNELS:
+        setattr(sharding, name, spy(name, fns[name]))
+    try:
+        out = run()
+    finally:
+        for name in MESH_STEP_KERNELS:
+            setattr(sharding, name, fns[name])
+    return out, first, {k: fn.launches - before[k] for k, fn in fns.items()
+                        if fn.launches != before[k]}
+
+
+def a_exact_checks(words, gen, errors: Errors) -> list:
+    """Kernel A on a mesh shard with queries of no valid k-mer (an empty
+    k-slice) at B = 256 (one block a query) and B = 2 (queries split over
+    blocks): its exact words must be all ones there, as the plain
+    version's, for ``and_all`` to keep them.  -> the splits checked."""
+    import torch
+
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import lookup as plain
+
+    sms = torch.cuda.get_device_properties(words.device).multi_processor_count
+    splits = []
+    for b, k in ((B, 256), (2, 4096)):
+        idx = torch.randint(0, words.shape[0], (b, k, H), generator=gen, device=words.device,
+                            dtype=torch.int32)
+        mask = torch.rand((b, k), generator=gen, device=words.device) < 0.9
+        mask[::2] = False
+        got, want = fl.classic_counts(words, idx, mask), plain.batched_counts(words, idx, mask)
+        errors.compare("classic_counts", got, want, "empty k-slices at B=%d W=%d" % (b, words.shape[1]))
+        check(bool((got[1][::2] == plain.ALL_ONES).all()), "A's exact of an empty slice is all ones")
+        splits.append(fl.classic_splits(b, k, words.shape[1], sms))
+    check(splits[0] == 1 and splits[1] > 1, "both of A's builds checked: splits %s" % splits)
+    return splits
+
+
+def shard_row(narrow: dict, kname: str, kernel, reference, args, kw, name, axes,
+              errors: Errors) -> None:
+    """Kernel ``kname`` on a mesh's inputs held to its plain version and
+    timed beside it, unless it was timed on inputs of this shape
+    already; the row goes to ``narrow``."""
+    key = (kname, tuple(args[0].shape))
+    if any(r["key"] == key for r in narrow.get(kname, [])):
+        return
+    ms, plain_ms = timed_kernel(kname, partial(kernel, **kw), partial(reference, **kw), args,
+                                errors, "%s %s shard" % (name, axes))
+    if kname == "seq_streams":  # a batch shard's bytes
+        moved = bound_bytes(kname, *args, kernel(*args, **kw)[:3])
+        shard = "B = %d, L = %d" % tuple(args[0].shape)
+    else:  # a sample shard's words or cols
+        moved = bound_bytes(kname, *args)
+        shard = "W_l = %d" % (args[0].shape[1] // (32 if kname == "cols_counts" else 1))
+    narrow.setdefault(kname, []).append({
+        "key": key, "index": name, "mesh": axes, "shard": shard, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms(moved), "mb": moved / 1e6,
+        "shape": [list(a.shape) for a in args if hasattr(a, "shape")]})
+
+
+def time_shards(first: dict, name: str, axes, errors: Errors, narrow: dict) -> None:
+    """A, C, E and H on the inputs of one search_batch's first launches
+    of each, beside their plain versions."""
+    from bigsi_tpu_torch.ops import lookup as plain
+    from bigsi_tpu_torch.ops import prep as plain_prep
+
+    plains = {"classic_counts": plain.batched_counts, "grouped_tile_counts": plain.grouped_counts,
+              "cols_counts": plain.grouped_counts_cols, "seq_streams": plain_prep.prep_streams}
+    for kname, (args, kw) in first.items():
+        shard_row(narrow, kname, kernel_fns()[kname], plains[kname], args, kw, name, axes, errors)
+
+
+def pack_shard_checks(engine, name: str, axes, errors: Errors, narrow: dict) -> int:
+    """Each cols shard of a mesh engine held to kernel D's plain version
+    over its column slice of the index's words, one load chunk of whole
+    tiles at a time (the chunks D packed at load); D timed on the first.
+    -> the chunks compared."""
+    import torch
+
+    from bigsi_tpu_torch.index.device_engine import LOAD_CHUNK_ROWS
+    from bigsi_tpu_torch.ops import lookup as plain
+
+    words, tile_rows = np.asarray(engine.matrix.words), engine.tile_rows
+    rows = max(1, LOAD_CHUNK_ROWS // tile_rows) * tile_rows
+    compared = 0
+    for (dev, j), cols in engine.cols.items():
+        w_l = cols.shape[1] // 32
+        view = words[:, j * w_l: (j + 1) * w_l]
+        for t0 in range(0, cols.shape[0], rows // tile_rows):
+            t1 = min(cols.shape[0], t0 + rows // tile_rows)
+            block = np.zeros(((t1 - t0) * tile_rows, w_l), dtype=np.uint32)
+            part = view[t0 * tile_rows: t1 * tile_rows]
+            block[: part.shape[0], : part.shape[1]] = part
+            chunk = torch.from_numpy(block.view(np.int32)).to(dev)
+            errors.compare("pack_tile_cols", (cols[t0:t1],),
+                           (plain.pack_tile_cols(chunk, tile_rows),),
+                           "%s %s shard %d tiles [%d, %d)" % (name, axes, j, t0, t1))
+            if not compared:
+                shard_row(narrow, "pack_tile_cols", kernel_fns()["pack_tile_cols"],
+                          plain.pack_tile_cols, (chunk, tile_rows), {}, name, axes, errors)
+            compared += 1
+    return compared
+
+
+def mesh_arm(arm: str, name: str, axes, port, single, seqs, want: dict, fns) -> tuple:
+    """One arm of a mesh handle: search_batch at 1.0 (its kernels' launches
+    and first arguments recorded) and 0.7 against the single-device
+    handle's, then 5 timed calls of each handle.  The k-mer arm turns the
+    seq arm off on both engine instances.  -> (a line, first args, the
+    number of result lists compared)."""
+    engine = port.screen_engine if name == VERIFIED else port.engine
+    if arm == "k-mer":
+        engine.supports_seq_batch = single.engine.supports_seq_batch = lambda: False
+    served = []
+    if arm == "seq":
+        real = engine.counts_batch_seqs
+        engine.counts_batch_seqs = lambda *a: served.append(real(*a)) or served[-1]
+    parts = VERIFIED_PARTS if name == VERIFIED else BATCH_PARTS
+    try:
+        got, first, launched = step_kernel_args(fns, lambda: port.search_batch(seqs, 1.0))
+        check(got == want[1.0] and port.search_batch(seqs, 0.7) == want[0.7],
+              "%s %s %s arm: search_batch at 1.0 and 0.7 equals the single-device engine's"
+              % (name, axes, arm))
+        expect = mesh_launches(engine, arm == "seq")
+        check(launched == expect and all(x is not None for x in served),
+              "%s %s %s arm: one search_batch launched %s (expected %s), seq arm served %s"
+              % (name, axes, arm, launched, expect, [x is not None for x in served]))
+        calls = search_batch_layers(port, seqs, 5, parts=parts)
+        with uncounted(fns):
+            ref_calls = search_batch_layers(single, seqs, 5, parts=parts)
+        mid, ref = median_call(calls), median_call(ref_calls)
+    finally:
+        for obj in (engine, single.engine):
+            obj.__dict__.pop("supports_seq_batch", None)
+        engine.__dict__.pop("counts_batch_seqs", None)
+    inner = "screen" if name == VERIFIED else "counts"
+    line = ("%s arm: search_batch median of 5 %.3f ms (%.1f queries/s), %s %.3f ms; "
+            "single-device %.3f ms, %s %.3f ms; launches a search_batch %s; the calls: mesh "
+            "%s, single-device %s"
+            % (arm, mid["search_batch"], B / mid["search_batch"] * 1e3, parts[inner], mid[inner],
+               ref["search_batch"], parts[inner], ref[inner], json.dumps(launched),
+               json.dumps([[c["search_batch"], c[inner]] for c in calls]),
+               json.dumps([[c["search_batch"], c[inner]] for c in ref_calls])))
+    return line, first, 2 * len(seqs)
+
+
+def mesh_handle(number: int, gpu: str, name: str, axes, runs, gen, errors: Errors, fns,
+                narrow: dict) -> None:
+    """Reopens index ``name`` of phases 4-9 on ``engine: mesh`` over
+    ``axes`` on one card, holds its answers to the single-device
+    handle's, times it, and drops it (its shards must be freed)."""
+    import gc
+
+    import torch
+
+    from bigsi_tpu_torch import BIGSI
+
+    single, seqs = runs[name]
+    q20 = "".join(seqs)[:20_000]
+    verified = name == VERIFIED
+    held_before = torch.cuda.memory_allocated()
+    packed = fns["pack_tile_cols"].launches
+    port, load_s, peak = on_device(
+        lambda: BIGSI(dict(single.config, engine="mesh", mesh=axes), device=MESH_DEVICE))
+    packed = fns["pack_tile_cols"].launches - packed
+    engine = port.screen_engine if verified else port.engine
+    shards = shard_tensors(engine)
+    held, count, shape = nbytes(*shards), len(shards), list(shards[0].shape)
+    check(type(engine).__name__ == "MeshEngine"
+          and count == engine.step_mesh.shape["s"] * engine.step_mesh.shape.get("r", 1),
+          "%s %s: a mesh engine holding one tensor per sample shard (and slab)" % (name, axes))
+    check(peak < held + LOAD_SLACK, "%s %s: the load's peak %d B stays under the shards' %d B "
+          "plus staging" % (name, axes, peak, held))
+    del shards
+    with uncounted(fns):
+        chunks = pack_shard_checks(engine, name, axes, errors, narrow) if engine.cols else 0
+        want = {t: single.search_batch(seqs, t) for t in (1.0, 0.7)}
+        want_one = {(q, t): single.search(q, t) for q in (seqs[0], q20) for t in (1.0, 0.7)}
+        want_scored = (single.search(seqs[0], 0.7, score=True),
+                       single.search_batch(seqs, 0.7, score=True))
+    for (q, t), w in want_one.items():
+        check(port.search(q, t) == w, "%s %s: search of %d bp at %.1f equals the single-device "
+              "engine's" % (name, axes, len(q), t))
+    check(port.search(seqs[0], 0.7, score=True) == want_scored[0]
+          and port.search_batch(seqs, 0.7, score=True) == want_scored[1],
+          "%s %s: scored search and search_batch equal the single-device engine's" % (name, axes))
+    check(packed == chunks, "%s %s: the load launched kernel D %d times, once a chunk of each "
+          "cols shard (%d)" % (name, axes, packed, chunks))
+    compared = len(want_one) + 1 + len(seqs)
+    arms = ("seq", "k-mer") if engine.supports_seq_batch() and not verified else ("counts_batch",)
+    lines = []
+    for arm in arms:
+        line, first, n = mesh_arm(arm, name, axes, port, single, seqs, want, fns)
+        lines.append(line)
+        compared += n
+        with uncounted(fns):  # A, C and E on this mesh's shards, beside their plain versions
+            time_shards(first, name, axes, errors, narrow)
+            if name == "classic" and axes == [2, 2, 2]:
+                lines.append("kernel A on a W_l = 16 shard: the exact words of empty k-slices "
+                             "all ones at splits %s"
+                             % a_exact_checks(first["classic_counts"][0][0], gen, errors))
+        del first
+    if packed:
+        shape = ("%s; kernel D launched %d times, each chunk equal to D's plain version over "
+                 "its column slice" % (shape, packed))
+    print("phase %d mesh %s %s [%s]: load %.3f s, device peak %.4f GB (shards %.4f GB: %d x %s); "
+          "%d results equal the single-device engine's (search_batch at 1.0 and 0.7, search of "
+          "%d bp and %d bp at 1.0 and 0.7, scored search and search_batch at 0.7); %s"
+          % (number, name, axes, gpu, load_s, peak / 1e9, held / 1e9, count, shape, compared,
+             QUERY_LEN, len(q20), "; ".join(lines)), flush=True)
+    del port, engine
+    gc.collect()
+    check(torch.cuda.memory_allocated() <= held_before,
+          "%s %s: dropping the handle frees its shards" % (name, axes))
+
+
+def mesh_mutation(rng) -> tuple[int, int]:
+    """An interior insert on a small classic index on a [2, 2, 2] mesh:
+    the old engine's shards are freed before the new ones are placed,
+    and the results follow the new matrix.  -> (bytes allocated before,
+    after)."""
+    import gc
+
+    import torch
+
+    from bigsi_tpu_torch import BIGSI
+    from bigsi_tpu_torch.kmers import seq_to_kmers
+    from bigsi_tpu_torch.storage import get_storage
+
+    config = {"storage-engine": "memory", "storage-config": {"filename": "chip-smoke-mesh-mut"},
+              "k": K_LEN, "m": MUTATION_M, "h": H, "engine": "mesh", "mesh": [2, 2, 2]}
+    get_storage(config).delete_all()
+    genomes = [random_seq(rng, 1000) for _ in range(8)]
+    port = BIGSI.build(config, [BIGSI.bloom(config, seq_to_kmers(g, K_LEN)) for g in genomes],
+                       ["s%d" % i for i in range(8)], device=MESH_DEVICE)
+    held = nbytes(*shard_tensors(port.engine))
+    before = torch.cuda.memory_allocated()
+    new = random_seq(rng, 1000)
+    port.insert_bloom(BIGSI.bloom(config, seq_to_kmers(new, K_LEN)), 2)
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    host = BIGSI(dict(config, engine="numpy"))
+    queries = [new[:400]] + [g[:400] for g in genomes]
+    check(after - before < held // 2 and type(port.engine).__name__ == "MeshEngine"
+          and port.search_batch(queries, 0.7) == host.search_batch(queries, 0.7)
+          and "s2" in {r["sample_name"] for r in port.search(new[:400], 1.0)},
+          "the mesh engine after an insert: %d B allocated before, %d after (shards %d B); "
+          "results equal the host engine's" % (before, after, held))
+    get_storage(config).delete_all()
+    return before, after
+
+
+def phase_mesh(number: int, gpu: str, runs, gen, rng, errors: Errors, fns):
+    """The mesh path: the handles of MESHES, their launches counted from
+    0; then, uncounted, an insert on a small mesh index and the dry run.
+    -> ({kernel: [its timings on mesh inputs]}, {kernel: launches of the
+    mesh path})."""
+    import torch
+
+    from bigsi_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    narrow = {}
+    for fn in fns.values():
+        fn.launches = 0
+    for name, axes in MESHES:
+        mesh_handle(number, gpu, name, axes, runs, gen, errors, fns, narrow)
+    torch.cuda.synchronize()
+    counted = {k: fn.launches for k, fn in fns.items()}
+    with uncounted(fns):
+        before, after = mesh_mutation(rng)
+        dryrun_multichip(8, device=MESH_DEVICE)
+    check(all(counted[k] > 0 for k in MESH_KERNELS) and
+          not any(n for k, n in counted.items() if k not in MESH_KERNELS),
+          "the meshes launched %s and no other: %s" % (MESH_KERNELS, counted))
+    for kname, rows in narrow.items():
+        for r in rows:
+            print("phase %d mesh kernel %s [%s]: %s %s shard %s (%s) %.4f ms vs plain "
+                  "PyTorch %.4f ms, bound %.4f ms by bytes (%.1f MB), %.3f of bound (cold L2)"
+                  % (number, kname, gpu, r["index"], r["mesh"], r["shard"], r["shape"], r["ms"],
+                     r["plain_ms"], r["bound_ms"], r["mb"], r["bound_ms"] / r["ms"]), flush=True)
+    print("phase %d mesh [%s]: after an interior insert the small mesh index held %d B (before "
+          "%d B); dryrun_multichip(8, device=%r) passed; launches of the meshes' handles %s; "
+          "the phase took %.1f s"
+          % (number, gpu, after, before, MESH_DEVICE, json.dumps(counted),
+             time.perf_counter() - t0), flush=True)
+    return {k: [{x: r[x] for x in ("index", "mesh", "shard", "ms", "plain_ms", "bound_ms")}
+                for r in rows] for k, rows in narrow.items()}, counted
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2317,6 +2726,7 @@ def main() -> None:
     kernel_ms.update(build_ms)
     for k in BUILD_KERNELS:
         launches[k] += built[k]
+    mesh_ms, meshed = phase_mesh(number + 4, gpu, runs, gen, rng, errors, fns)
     loaded = sorted(m for m in sys.modules
                     if m in ("bigsi_tpu", "jax") or m.startswith(("bigsi_tpu.", "jax.")))
     check(not loaded, "neither bigsi_tpu nor jax was imported: %s" % loaded)
@@ -2330,6 +2740,9 @@ def main() -> None:
     for k in kernels:
         if k["name"] == "tile_counts":
             k["counts_only_launches"] = counted["counts_only"]
+        if k["name"] in MESH_KERNELS:
+            k["mesh_launches"] = meshed[k["name"]]
+            k["mesh_shards"] = mesh_ms.get(k["name"], [])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

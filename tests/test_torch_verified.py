@@ -1,11 +1,12 @@
 """Verified (screened) indexes in bigsi_tpu_torch, held to bigsi_tpu.
 
-Each case of ``tests/test_verified_search.py`` (all but the mesh engine's)
-runs here on the port: ``bigsi_tpu_torch.BIGSI`` on its CUDA engine's plain
-versions (``device="cpu"``: the screen through kernels D and E's plain
-versions, the batched verify through ``DeviceVerifier`` over kernel A's)
-and on ``engine: numpy``, against ``bigsi_tpu.BIGSI`` on ``engine: numpy``
-and on ``engine: tpu`` (JAX on the CPU), and against a classic index of
+Each case of ``tests/test_verified_search.py`` runs here on the port:
+``bigsi_tpu_torch.BIGSI`` on its CUDA engine's plain versions
+(``device="cpu"``: the screen through kernels D and E's plain versions,
+the batched verify through ``DeviceVerifier`` over kernel A's) and on
+``engine: numpy`` (the mesh case on ``engine: mesh``), against
+``bigsi_tpu.BIGSI`` on ``engine: numpy`` and on ``engine: tpu`` (JAX on
+the CPU; the mesh case on ``engine: mesh``), and against a classic index of
 the same samples.  Each package blooms the same k-mers (the blooms must
 be equal) and builds its own index directory.  Tolerance: none, counts
 and result dicts are equal.
@@ -123,6 +124,25 @@ def test_verified_identical_to_classic_all_engines(tmp_path):
     assert isinstance(idx["port numpy"].screen_engine, HostEngine)
     queries = [s[40:260] for s in seqs[:6]] + [s[100:300] for s in seqs[6:]]
     assert_all_answer_as(cl, idx, queries, (1.0, 0.7, 0.5))
+
+
+def test_verified_identical_through_mesh_engine(tmp_path):
+    """The screen on the port's mesh engine (``engine: mesh``, a 2 x 1 x 4
+    mesh of positions on the CPU: kernel E's plain version per sample
+    shard) and on bigsi_tpu's (8 virtual CPU devices): result dicts equal
+    the classic oracle's."""
+    from bigsi_tpu_torch.parallel.sharding import MeshEngine
+
+    rng = np.random.default_rng(77)
+    seqs = dataset(rng, n=4)
+    names = ["g%d" % i for i in range(4)] + ["m%d" % i for i in range(4)]
+    cl, ref_cfg, port_cfg, _ = build_both(tmp_path, seqs, names)
+    vm = bigsi_tpu_torch.BIGSI(dict(port_cfg, engine="mesh", mesh=[2, 1, 4]), device="cpu")
+    assert isinstance(vm.screen_engine, MeshEngine) and vm.screen_engine.cols is not None
+    jm = bigsi_tpu.BIGSI(dict(ref_cfg, engine="mesh"))
+    assert type(jm.screen_engine).__name__ == "MeshEngine"
+    queries = [s[40:260] for s in seqs]
+    assert_all_answer_as(cl, {"port mesh": vm, "bigsi_tpu mesh": jm}, queries, (1.0, 0.7))
 
 
 def test_verified_score_path_identical(tmp_path):
