@@ -150,7 +150,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--distributed",
         action="store_true",
-        help="multi-process serving (not ported yet: raises)",
+        help="multi-process serving: every rank (BIGSI_TPU_COORDINATOR, "
+        "BIGSI_TPU_NUM_PROCESSES, BIGSI_TPU_PROCESS_ID) holds its shards of the "
+        "index on its device, rank 0 answers HTTP read-only",
     )
     _add_config_arg(p)
 

@@ -5,7 +5,9 @@ defaults (``bigsi/__main__.py:86-94``).  Schema is a superset of the
 reference's: ``k``, ``m``, ``h``, ``nproc``, ``storage-engine``,
 ``storage-config``, ``max_build_mem_bytes`` plus ``engine`` (unset: the
 CUDA engine; "numpy": the host engine; "mesh": the sharded mesh engine
-over ``mesh: [d, k, s(, r)]``) and the layout keys.
+over ``mesh: [d, k, s(, r)]``; "distributed": the multi-process engine of
+``serve --distributed``, over the same ``mesh`` across the ranks) and the
+layout keys.
 Unlike the reference (which KeyErrors at point of use), configs are
 validated up front.
 """
@@ -25,7 +27,7 @@ from bigsi_tpu_torch.hashing.scheme import (  # single source of truth
 )
 
 REQUIRED_KEYS = ("k", "m", "h")
-KNOWN_ENGINES = ("numpy", "mesh")  # besides unset, the CUDA engine
+KNOWN_ENGINES = ("numpy", "mesh", "distributed")  # besides unset, the CUDA engine
 
 
 def get_config_from_file(config_file: str | None) -> dict:

@@ -26,8 +26,13 @@ This is bigsi_tpu's facade with the port's engine seam: the config's
   (:class:`~bigsi_tpu_torch.parallel.sharding.MeshEngine`) over ``mesh:
   [d, k, s(, r)]``, its positions on the CUDA devices or all on
   ``device`` where one is given;
-* anything else is refused: the JAX engines are not part of the port,
-  and ``distributed`` is not ported yet.
+* ``distributed``: the multi-process engine
+  (:class:`~bigsi_tpu_torch.parallel.distributed.DistributedEngine`) of
+  ``serve --distributed``, the same ``mesh`` across the ranks of the
+  process group (``parallel.distributed.initialize``), each rank on its
+  own device (``device`` where given); without the process group it
+  raises;
+* anything else is refused: the JAX engines are not part of the port.
 
 A screened (verified) index answers as a classic one (bigsi_tpu's
 two-stage search, :mod:`bigsi_tpu_torch.index.verify`): the config's
@@ -820,7 +825,9 @@ def engine_factory_for(config: dict, device=None):
     engine on ``device`` (CUDA unless given), ``"numpy"`` the host
     engine, ``"mesh"`` the sharded mesh engine over ``config["mesh"]``
     (``[d, k, s(, r)]``; its positions on the CUDA devices, or all on
-    ``device`` where one is given); anything else raises."""
+    ``device`` where one is given), ``"distributed"`` the multi-process
+    engine over the same mesh across the process group's ranks (raises
+    without one); anything else raises."""
     engine = config.get("engine")
     if engine == "numpy":
         return HostEngine
@@ -829,10 +836,9 @@ def engine_factory_for(config: dict, device=None):
 
         return mesh_engine_factory(config.get("mesh"), device)
     if engine == "distributed":
-        raise ValueError(
-            "engine 'distributed' (multi-process serving) is not ported to "
-            "bigsi_tpu_torch yet: see ROADMAP.md, queue 1 item 2"
-        )
+        from bigsi_tpu_torch.parallel.distributed import distributed_engine_factory
+
+        return distributed_engine_factory(config.get("mesh"), device)
     if engine is not None:
         raise ValueError(
             "engine %r is not part of bigsi_tpu_torch: leave 'engine' unset "

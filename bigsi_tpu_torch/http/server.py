@@ -359,7 +359,7 @@ def make_server(config, host="0.0.0.0", port=8000, device=None) -> BigsiHTTPServ
 
 def serve(config, host="0.0.0.0", port=8000, device=None, distributed=False) -> None:
     if distributed:
-        raise NotImplementedError("serve --distributed is not ported to bigsi_tpu_torch yet")
+        return serve_distributed(config, host, port, device)
     server = make_server(config, host, port, device)
     logger.info("bigsi-tpu-torch serving on %s:%d", host, port)
     try:
@@ -369,3 +369,50 @@ def serve(config, host="0.0.0.0", port=8000, device=None, distributed=False) -> 
     finally:
         server.invalidate()
         server.server_close()
+
+
+def serve_distributed(config, host="0.0.0.0", port=8000, device=None) -> None:
+    """Multi-process serving: the index is split over the ranks of the
+    process group (:func:`bigsi_tpu_torch.parallel.distributed.initialize`,
+    from ``BIGSI_TPU_COORDINATOR``, ``BIGSI_TPU_NUM_PROCESSES`` and
+    ``BIGSI_TPU_PROCESS_ID``), each rank on its own device (``device``
+    where given, else ``cuda:{rank % device_count}``); rank 0 answers
+    HTTP, the other ranks run their parts of each dispatch
+    (``run_worker_loop``).  Serving is read-only: mutating routes answer
+    403; rebuild or merge offline, then restart the fleet.  When rank 0's
+    server ends (SIGINT included) it stops the other ranks."""
+    import torch.distributed as dist
+
+    from bigsi_tpu_torch.parallel import distributed
+
+    distributed.initialize()
+    cfg = dict(config, engine="distributed")
+    graph = BIGSI(cfg, device=device)
+    # the collective engine is graph.engine, except on verified (screen:)
+    # indexes, where it runs the screen and graph.engine verifies on rank 0
+    collective = next(
+        (e for e in (graph.engine, graph.screen_engine) if hasattr(e, "run_worker_loop")), None
+    )
+    if collective is None:
+        raise ValueError(
+            "serve --distributed: the index of %r opened no distributed engine"
+            % cfg.get("storage-config", {}).get("filename")
+        )
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if rank != 0:
+        logger.info("bigsi-tpu-torch distributed worker %d of %d running", rank, world)
+        collective.run_worker_loop()
+        return
+    server = None
+    try:  # the other ranks leave their loops however rank 0's server ends
+        server = make_server(cfg, host, port, device)
+        server._bigsi = graph  # the handle every rank opened
+        server.read_only = True
+        logger.info("bigsi-tpu-torch distributed serving on %s:%d (%d ranks)", host, port, world)
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        collective.stop()
+        if server is not None:
+            server.server_close()

@@ -237,11 +237,12 @@ def _distinct(devices) -> list:
     return out
 
 
-def _column_views(words: np.ndarray, s: int):
+def _column_views(words: np.ndarray, s: int, w_l: int | None = None):
     """-> (W_l, [the words of sample shard j, a view]); the last shards'
-    views may be narrower than W_l, or empty."""
+    views may be narrower than W_l, or empty.  ``w_l`` None is
+    :func:`shard_words` of ``words``' width."""
     w = words.shape[1]
-    w_l = shard_words(w, s)
+    w_l = w_l or shard_words(w, s)
     return w_l, [words[:, min(w, j * w_l): min(w, (j + 1) * w_l)] for j in range(s)]
 
 
@@ -252,16 +253,18 @@ def _check_words(words) -> np.ndarray:
     return words
 
 
-def shard_matrix(words: np.ndarray, mesh: Mesh, tile_rows: int | None = None) -> dict:
+def shard_matrix(words: np.ndarray, mesh: Mesh, tile_rows: int | None = None,
+                 shard_w: int | None = None) -> dict:
     """Place the packed matrix uint32[m, W] with rows replicated over the
     batch and k-mer axes and the word axis sharded over ``s``: ->
     ``{(device, j): int32[m_pad, W_l]}``, one tensor per distinct device
     of sample shard j, W zero-padded to ``W_l * s`` (and m to whole
-    tiles with ``tile_rows``)."""
+    tiles with ``tile_rows``).  ``shard_w`` sets W_l (default
+    :func:`shard_words`): a rank's column block of a wider matrix."""
     words = _check_words(words)
     m = words.shape[0]
     m_pad = m if tile_rows is None else -(-m // tile_rows) * tile_rows
-    w_l, views = _column_views(words, mesh.shape[AXIS_SAMPLES])
+    w_l, views = _column_views(words, mesh.shape[AXIS_SAMPLES], shard_w)
     return {
         (dev, j): load_words(view, dev, tile_rows, shape=(m_pad, w_l))
         for j, view in enumerate(views)
@@ -279,12 +282,14 @@ def shard_tiles(tiles: np.ndarray, mesh: Mesh, tile_rows: int = TILE_ROWS) -> di
     return shard_matrix(tiles.reshape(t * tile_rows, fat // tile_rows), mesh, tile_rows)
 
 
-def place_cols(words: np.ndarray, mesh: Mesh, tile_rows: int) -> dict:
+def place_cols(words: np.ndarray, mesh: Mesh, tile_rows: int,
+               shard_w: int | None = None) -> dict:
     """The cols layout of the row-major matrix, sample-sharded: ->
     ``{(device, j): [T, W_l * 32]}``, each shard packed by kernel D from
-    its column slice of ``words``, chunk by chunk (``load_cols``)."""
+    its column slice of ``words``, chunk by chunk (``load_cols``);
+    ``shard_w`` as in :func:`shard_matrix`."""
     words = _check_words(words)
-    w_l, views = _column_views(words, mesh.shape[AXIS_SAMPLES])
+    w_l, views = _column_views(words, mesh.shape[AXIS_SAMPLES], shard_w)
     return {
         (dev, j): load_cols(view, dev, tile_rows, width=w_l)
         for j, view in enumerate(views)
@@ -292,17 +297,20 @@ def place_cols(words: np.ndarray, mesh: Mesh, tile_rows: int) -> dict:
     }
 
 
-def place_slabs(words: np.ndarray, mesh: Mesh, tile_rows: int) -> dict:
+def place_slabs(words: np.ndarray, mesh: Mesh, tile_rows: int,
+                shard_w: int | None = None, slab_rows: int | None = None) -> dict:
     """Row-major words uint32[m, W] on a row mesh (d, r, s): the tile axis
     (m zero-padded to whole tiles, then to a multiple of r tiles) sharded
     over ``r`` and the word axis over ``s``: -> ``{(device, j, q):
     int32[T_l * tile_rows, W_l]}``, slab q holding tiles [q * T_l, (q + 1)
-    * T_l).  Phantom tiles are never probed: tile ids stay below T."""
+    * T_l).  Phantom tiles are never probed: tile ids stay below T.
+    ``shard_w`` as in :func:`shard_matrix`; ``slab_rows`` sets T_l *
+    tile_rows (a rank's slabs of a taller matrix)."""
     words = _check_words(words)
     r = mesh.shape[AXIS_ROWS]
     t = -(-words.shape[0] // tile_rows)
-    rows = -(-t // r) * tile_rows  # rows of a slab
-    w_l, views = _column_views(words, mesh.shape[AXIS_SAMPLES])
+    rows = slab_rows or -(-t // r) * tile_rows  # rows of a slab
+    w_l, views = _column_views(words, mesh.shape[AXIS_SAMPLES], shard_w)
     return {
         (dev, j, q): load_words(view[q * rows: (q + 1) * rows], dev, tile_rows,
                                 shape=(rows, w_l))

@@ -187,14 +187,43 @@ k-mers each), the shape of bench.py.  Phases:
    split; dropping a handle frees its shards.  Then an interior insert
    on a small [2, 2, 2] mesh index frees the old shards before the new
    ones are placed, and dryrun_multichip(8, device="cuda:0") runs every
-   step once.  Only A, C, D, E and H may launch.
+   step once.  Only A, C, D, E and H may launch;
+14. multi-process serving (bigsi_tpu_torch/parallel/distributed.py):
+   a classic and a minimizer/16 (w = 19, slot scheme 3, r = 20) index of
+   the same size written to disk (storage-engine bigsi-tpu, under
+   build/chip_smoke/distributed, its free space printed first, deleted
+   at the end).  A fleet of 2 ranks, fresh processes of this script
+   (--dist-rank) joined over gloo, both on cuda:0, each reading its
+   shards from the minimizer/16 rows.bin mmap: on mesh [2, 1, 2] rank 0
+   dispatches query (kernel A) on the facade's rows of the 256 queries,
+   query_grouped (C) on their grouped streams, query_seqs (D at the
+   first, then H and E) on their bytes and presence on one query, then
+   query_grouped and presence with 2 row shards (C over slabs); every
+   output bit-equal to the single-device engine's on the same inputs
+   (query to kernel A's plain version on the whole matrix), each rank's
+   launches counted from 0 (A, C, D, E and H, no other), each op's
+   median dispatch of 5 beside the single-device call, split into its
+   legs on rank 0's host clock (pad, pack, the header's and the buffer's
+   broadcasts, rank 0's part, the gather, the join).  After each
+   service each rank in turn, uncounted, holds A, C, E and H to their
+   plain versions on the inputs of their first launch there and every
+   cols chunk to D's plain version, and times them.  Then, for
+   each index, both ranks run `python -m bigsi_tpu_torch serve
+   --distributed` from the BIGSI_TPU_* variables; GET /search (542 bp,
+   20 kb, one scored), /bulk_search of the 256-record FASTA at 1.0 and
+   0.7 and 8 concurrent GETs must equal the single-device handle's,
+   POST /insert answers 403, the median of 5 /bulk_search calls is
+   printed beside the single-device search_batch, and SIGINT to rank 0
+   stops both ranks (exit 0 within 60 s).  A rank that fails or runs
+   over fails the run with its stderr tail.
 
 Then a check that no module of bigsi_tpu or jax was loaded, one JSON
 line of the kernels (each with its launches on the main path, phase 13's
 included, its time, its plain version's, the least time its bytes allow
 on an H100 (3.35 TB/s) for this run's inputs, the one-call PyTorch
-yardstick where there is one, and for A, C and E their times on the mesh
-shards), and
+yardstick where there is one, for A, C and E their times on the mesh
+shards, and the launches of phase 14's service ranks summed as
+dist_launches with their times on the ranks' shards as dist_shards), and
 last the JSON line {"ok": true, "device": {...}}.  Any failure exits
 non-zero; with no CUDA device it exits 1 before printing any result.
 
@@ -2465,29 +2494,29 @@ def time_shards(first: dict, name: str, axes, errors: Errors, narrow: dict) -> N
         shard_row(narrow, kname, kernel_fns()[kname], plains[kname], args, kw, name, axes, errors)
 
 
-def pack_shard_checks(engine, name: str, axes, errors: Errors, narrow: dict) -> int:
-    """Each cols shard of a mesh engine held to kernel D's plain version
-    over its column slice of the index's words, one load chunk of whole
-    tiles at a time (the chunks D packed at load); D timed on the first.
-    -> the chunks compared."""
+def pack_shard_checks(words, tile_rows: int, cols: dict, name: str, axes, errors: Errors,
+                      narrow: dict) -> int:
+    """Each cols shard ``{(device, j): cols}`` held to kernel D's plain
+    version over its column slice of ``words`` (the columns its sample
+    shards cover), one load chunk of whole tiles at a time (the chunks D
+    packed at load); D timed on the first.  -> the chunks compared."""
     import torch
 
     from bigsi_tpu_torch.index.device_engine import LOAD_CHUNK_ROWS
     from bigsi_tpu_torch.ops import lookup as plain
 
-    words, tile_rows = np.asarray(engine.matrix.words), engine.tile_rows
     rows = max(1, LOAD_CHUNK_ROWS // tile_rows) * tile_rows
     compared = 0
-    for (dev, j), cols in engine.cols.items():
-        w_l = cols.shape[1] // 32
+    for (dev, j), shard in cols.items():
+        w_l = shard.shape[1] // 32
         view = words[:, j * w_l: (j + 1) * w_l]
-        for t0 in range(0, cols.shape[0], rows // tile_rows):
-            t1 = min(cols.shape[0], t0 + rows // tile_rows)
+        for t0 in range(0, shard.shape[0], rows // tile_rows):
+            t1 = min(shard.shape[0], t0 + rows // tile_rows)
             block = np.zeros(((t1 - t0) * tile_rows, w_l), dtype=np.uint32)
             part = view[t0 * tile_rows: t1 * tile_rows]
             block[: part.shape[0], : part.shape[1]] = part
             chunk = torch.from_numpy(block.view(np.int32)).to(dev)
-            errors.compare("pack_tile_cols", (cols[t0:t1],),
+            errors.compare("pack_tile_cols", (shard[t0:t1],),
                            (plain.pack_tile_cols(chunk, tile_rows),),
                            "%s %s shard %d tiles [%d, %d)" % (name, axes, j, t0, t1))
             if not compared:
@@ -2568,7 +2597,8 @@ def mesh_handle(number: int, gpu: str, name: str, axes, runs, gen, errors: Error
           "plus staging" % (name, axes, peak, held))
     del shards
     with uncounted(fns):
-        chunks = pack_shard_checks(engine, name, axes, errors, narrow) if engine.cols else 0
+        chunks = (pack_shard_checks(np.asarray(engine.matrix.words), engine.tile_rows, engine.cols,
+                                    name, axes, errors, narrow) if engine.cols else 0)
         want = {t: single.search_batch(seqs, t) for t in (1.0, 0.7)}
         want_one = {(q, t): single.search(q, t) for q in (seqs[0], q20) for t in (1.0, 0.7)}
         want_scored = (single.search(seqs[0], 0.7, score=True),
@@ -2683,15 +2713,588 @@ def phase_mesh(number: int, gpu: str, runs, gen, rng, errors: Errors, fns):
                 for r in rows] for k, rows in narrow.items()}, counted
 
 
+# -- phase 14: multi-process serving --------------------------------------
+
+
+DIST_WORLD = 2
+DIST_MESH = [2, 1, 2]
+DIST_DEVICE = "cuda:0"  # both ranks share the one card, each in its own process and context
+DIST_INDEXES = ("classic", HEADLINE)
+DIST_KERNELS = ("classic_counts", "grouped_tile_counts", "pack_tile_cols", "cols_counts",
+                "seq_streams")
+RANK_TIMEOUT = 300  # s, each rank process
+STOP_TIMEOUT = 60  # s, for both ranks to exit after SIGINT to rank 0
+DIST_REPS = 5
+
+
+def dist_config(name: str, root: Path) -> dict:
+    return {"storage-engine": "bigsi-tpu",
+            "storage-config": {"filename": str(root / name.replace("/", "-"))},
+            "k": K_LEN, "m": M, "h": H, **INDEXES[name][0]}
+
+
+def facade_rows(port, seqs):
+    """The row ids and mask the facade's k-mer path builds for ``seqs``:
+    -> (int32[B, K, h], bool[B, K])."""
+    from bigsi_tpu_torch.kmers import seq_to_kmer_matrix, unique_rows_with_inverse
+
+    rows = [port.kmer_matrix_to_row_idx(unique_rows_with_inverse(seq_to_kmer_matrix(s, K_LEN))[0])
+            for s in seqs]
+    idx = np.zeros((len(rows), max(r.shape[0] for r in rows), H), dtype=np.int32)
+    mask = np.zeros(idx.shape[:2], dtype=bool)
+    for i, r in enumerate(rows):
+        idx[i, : r.shape[0]] = r
+        mask[i, : r.shape[0]] = True
+    return idx, mask
+
+
+def facade_bytes(seqs):
+    """The facade's padded query bytes and lengths."""
+    lens = np.array([len(s) for s in seqs], dtype=np.int32)
+    padded = np.full((len(seqs), int(lens.max())), ord("A"), dtype=np.uint8)
+    for i, s in enumerate(seqs):
+        padded[i, : len(s)] = np.frombuffer(s.encode(), dtype=np.uint8)
+    return padded, lens
+
+
+def median_ms(fn, reps: int = DIST_REPS) -> tuple[float, list]:
+    """Median and every time of ``reps`` calls of ``fn`` (host clock, ms),
+    after one call at the same shape."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], times
+
+
+# the legs of one dispatch on rank 0's host clock, in call order
+LEGS = ("pad", "pack", "header", "buffer", "part", "gather", "join", "other")
+
+
+class Legs:
+    """Rank 0's host clock on the legs of its dispatches (ms, summed over
+    one call): ``pad`` before ``_dispatch``, the buffer's ``pack``, the
+    ``header`` and ``buffer`` broadcasts, rank 0's own ``part``, the
+    ``gather`` (which waits for the slowest rank's part), the ``join``
+    after ``_dispatch``, and ``other``, the rest of the call."""
+
+    def __init__(self):
+        self.ms, self.marks = {}, {}
+
+    @contextlib.contextmanager
+    def leg(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+    def call(self, fn) -> dict:
+        """One call of ``fn`` split into its legs."""
+        self.ms.clear()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        row = dict(self.ms, pad=(self.marks["enter"] - t0) * 1e3,
+                   join=(t1 - self.marks["exit"]) * 1e3)
+        row["other"] = (t1 - t0) * 1e3 - sum(row.values())
+        row["total"] = (t1 - t0) * 1e3
+        return row
+
+
+@contextlib.contextmanager
+def timed_legs(svc, distributed, legs: Legs):
+    """Rank 0's dispatches on ``svc`` with their legs timed into ``legs``:
+    torch.distributed as the service's module sees it (its broadcasts and
+    its gather), the module's ``_pack``, and the entry to and exit from
+    the service's ``_dispatch``."""
+    import torch
+    import torch.distributed as tdist
+
+    class Group:
+        def __getattr__(self, name):
+            return getattr(tdist, name)
+
+        @staticmethod
+        def broadcast(tensor, src):
+            with legs.leg("header" if tensor.dtype == torch.int64 else "buffer"):
+                return tdist.broadcast(tensor, src=src)
+
+        @staticmethod
+        def gather(tensor, gather_list=None, dst=0):
+            with legs.leg("gather"):
+                return tdist.gather(tensor, gather_list, dst=dst)
+
+    real_pack, real_dispatch = distributed._pack, svc._dispatch
+
+    def pack(arrays):
+        with legs.leg("pack"):
+            return real_pack(arrays)
+
+    def dispatch(*args, **kw):
+        legs.marks["enter"] = time.perf_counter()
+        try:
+            return real_dispatch(*args, **kw)
+        finally:
+            legs.marks["exit"] = time.perf_counter()
+
+    distributed.dist, distributed._pack, svc._dispatch = Group(), pack, dispatch
+    try:
+        yield
+    finally:
+        distributed.dist, distributed._pack = tdist, real_pack
+        del svc._dispatch
+
+
+def dist_dispatch(svc, row_shards: int, root: Path, legs: Legs) -> dict:
+    """Rank 0's dispatches on one service: the four ops (or with row
+    shards the grouped op and presence), each result saved for the
+    parent, each op timed at its cached shape, leg by leg."""
+    inp = dict(np.load(root / "inputs.npz"))
+    ops = {"grouped": lambda: svc.query_grouped(inp["utile"], inp["gmask"]),
+           "presence": lambda: svc.presence(inp["pidx"])}
+    if row_shards == 1:
+        ops["query"] = lambda: svc.query(inp["idx"], inp["mask"])
+        ops["seqs"] = lambda: svc.query_seqs(inp["seqs"], inp["lens"], K_LEN, H)
+    out, times = {}, {}
+    for op, call in ops.items():
+        got = call()
+        check(got is not None, "the fleet's %s op served (no entry-budget overflow)" % op)
+        for i, part in enumerate(got if isinstance(got, tuple) else (got,)):
+            out["%s%d" % (op, i)] = part
+        call()  # one more at the same shape, as median_ms does
+        rows = [legs.call(call) for _ in range(DIST_REPS)]
+        times[op] = {name: sorted(r.get(name, 0.0) for r in rows)[DIST_REPS // 2]
+                     for name in LEGS + ("total",)}
+        times[op]["times"] = [r["total"] for r in rows]
+    np.savez(root / ("rank0-r%d.npz" % row_shards), **out)
+    return {"r%d" % row_shards: times}
+
+
+def dist_rank(rank: int, port: int, root: Path) -> None:
+    """One rank of the service fleet (``--dist-rank``): the minimizer/16
+    index's rows.bin mmap on a [2, 1, 2] mesh over 2 ranks, then with 2
+    row shards; its launches counted from 0 and printed.  After each
+    service, uncounted and one rank at a time (the other waits on the
+    host), the kernels of this rank's steps are held to their plain
+    versions on the inputs of their first launch, and each cols chunk
+    D packed to D's plain version."""
+    import gc
+    import mmap
+
+    import torch
+
+    from bigsi_tpu_torch.parallel import distributed
+    from bigsi_tpu_torch.storage import get_storage
+
+    check(torch.cuda.is_available(), "rank %d sees a CUDA device" % rank)
+    fns = kernel_fns()
+    distributed.initialize("127.0.0.1:%d" % port, DIST_WORLD, rank)
+    words = get_storage(dist_config(HEADLINE, root)).load_matrix().words
+    base = words
+    while base is not None and not isinstance(base, mmap.mmap):
+        base = getattr(base, "base", None)
+    check(base is not None, "rank %d reads the rows.bin mmap" % rank)
+    mesh = distributed.make_global_mesh(DIST_MESH, device=DIST_DEVICE)
+    for fn in fns.values():
+        fn.launches = 0
+    out, errors, narrow, legs, chunks = {}, Errors(), {}, Legs(), 0
+    names = {distributed.OP_QUERY: "query", distributed.OP_GROUPED: "grouped",
+             distributed.OP_SEQS: "seqs", distributed.OP_PRESENCE: "presence"}
+    for row_shards in (1, 2):
+        svc = distributed.DistributedQueryService(
+            words, mesh, m=M, layout="minimizer", tile_rows=16, run_len=HEADLINE_R,
+            row_shards=row_shards, minimizer_window=19, slot_scheme=3, device=DIST_DEVICE)
+        parts, real = {}, svc._part
+
+        def timed(op, arrays, k, h, _parts=parts, _real=real):
+            """This rank's part of each dispatch on the host clock (its
+            copies in, kernels and copies out; the first also places)."""
+            with legs.leg("part"):
+                t0 = time.perf_counter()
+                got = _real(op, arrays, k, h)
+                _parts.setdefault(names[op], []).append((time.perf_counter() - t0) * 1e3)
+            return got
+
+        svc._part = timed
+        if rank:
+            _, first, _ = step_kernel_args(fns, svc.run_worker_loop)
+        else:
+            with timed_legs(svc, distributed, legs):
+                got, first, _ = step_kernel_args(fns, lambda: dist_dispatch(svc, row_shards, root,
+                                                                            legs))
+            out.update(got)
+            svc.stop()
+        held = sum(nbytes(*p.values()) for p in svc._placed.values())
+        out["held_r%d" % row_shards] = held
+        out["parts_r%d" % row_shards] = {op: {"first": t[0], "median": sorted(t[-DIST_REPS:])[
+            DIST_REPS // 2]} for op, t in parts.items()}
+        axes = DIST_MESH + ([row_shards] if row_shards > 1 else [])
+        for turn in range(DIST_WORLD):
+            if turn == rank:
+                with uncounted(fns):
+                    time_shards(first, "%s rank %d" % (HEADLINE, rank), axes, errors, narrow)
+                    if "cols" in svc._placed:
+                        view, _ = distributed._local_word_slice(words, svc.flat, rank)
+                        chunks += pack_shard_checks(view, svc.tile_rows, svc._placed["cols"],
+                                                    "%s rank %d" % (HEADLINE, rank), axes,
+                                                    errors, narrow)
+                torch.cuda.synchronize()
+            torch.distributed.barrier()
+        del svc, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launched = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    check(launched.get("pack_tile_cols", 0) == chunks,
+          "rank %d: kernel D launched %d times, once a chunk of its cols shards (%d)"
+          % (rank, launched.get("pack_tile_cols", 0), chunks))
+    out["kernels"] = {k: [{x: r[x] for x in ("index", "mesh", "shard", "shape", "ms", "plain_ms",
+                                             "bound_ms", "mb")} for r in rows]
+                      for k, rows in narrow.items()}
+    out["max_err"] = errors.max
+    out["chunks"] = chunks
+    print("LAUNCHES " + json.dumps(launched))
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Fleet:
+    """Rank processes started together, their output in files under
+    ``root``; ``finish`` waits for each, fails on a non-zero exit or a
+    timeout with the rank's stderr tail, and no rank outlives the
+    block."""
+
+    def __init__(self, name: str, root: Path, cmds, envs):
+        import subprocess
+
+        self.logs = [(root / ("%s-%d.out" % (name, r)), root / ("%s-%d.err" % (name, r)))
+                     for r in range(len(cmds))]
+        self.procs = []
+        for (out, err), cmd, env in zip(self.logs, cmds, envs):
+            with open(out, "w") as fo, open(err, "w") as fe:
+                self.procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=fo,
+                                                   stderr=fe, stdin=subprocess.DEVNULL))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def tail(self, r: int) -> str:
+        return self.logs[r][1].read_text()[-3000:]
+
+    def alive(self) -> bool:
+        return all(p.poll() is None for p in self.procs)
+
+    def finish(self, timeout: float) -> list[str]:
+        """-> each rank's stdout, once all exited 0 within ``timeout`` s."""
+        import subprocess
+
+        deadline = time.monotonic() + timeout
+        for r, p in enumerate(self.procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                print(self.tail(r), file=sys.stderr)
+                check(False, "rank %d of %s exited within %.0f s" % (r, self.logs[r][0].stem,
+                                                                        timeout))
+            if p.returncode != 0:
+                print(self.tail(r), file=sys.stderr)
+                check(False, "rank %d of %s exited 0 (got %d)" % (r, self.logs[r][0].stem,
+                                                                   p.returncode))
+        return [out.read_text() for out, _ in self.logs]
+
+
+def tagged(text: str, tag: str) -> dict:
+    return json.loads(next(x for x in text.splitlines() if x.startswith(tag + " "))[len(tag) + 1:])
+
+
+def service_fleet(number: int, gpu: str, single, seqs, root: Path, fns,
+                  errors: Errors) -> tuple[dict, dict]:
+    """The service fleet on the minimizer/16 index: every op's result
+    bit-equal to the single-device engine's on the same inputs (query to
+    kernel A's plain version), each rank launching A, C, D, E and H and
+    no other kernel, and holding each to its plain version on the inputs
+    its steps gave it.  -> (the ranks' launches summed, {kernel: the
+    ranks' timings on those inputs})."""
+    import torch
+
+    from bigsi_tpu_torch.hashing.scheme import window_to_s
+    from bigsi_tpu_torch.index.device_engine import (
+        DeviceEngine,
+        seq_batch_geometry,
+        tile_streams,
+    )
+    from bigsi_tpu_torch.ops import lookup as plain
+
+    idx, mask = facade_rows(single, seqs)
+    tile, smask = tile_streams(torch.from_numpy(idx), torch.from_numpy(mask), 16)
+    utile, gmask = plain.build_grouped_streams(tile, smask, HEADLINE_R)
+    padded, lens = facade_bytes(seqs)
+    geom = seq_batch_geometry(padded, lens, K_LEN, K_LEN - window_to_s(K_LEN, 19) + 1,
+                              db=DIST_MESH[0] * DIST_MESH[1])
+    check(geom is not None, "the geometry guard admits the batch")
+    pidx = idx[0][mask[0]]
+    np.savez(root / "inputs.npz", idx=idx, mask=mask, utile=utile.numpy(), gmask=gmask.numpy(),
+             seqs=geom[0], lens=geom[1], pidx=pidx)
+    port = free_port()
+    cmds = [[sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank", str(r), "--dist-port",
+             str(port), "--dist-dir", str(root)] for r in range(DIST_WORLD)]
+    import os
+
+    t0 = time.perf_counter()
+    with Fleet("service", root, cmds, [dict(os.environ)] * DIST_WORLD) as fleet:
+        outs = fleet.finish(RANK_TIMEOUT)
+    fleet_s = time.perf_counter() - t0
+    launches = [tagged(o, "LAUNCHES") for o in outs]
+    ranks = [tagged(o, "RESULT") for o in outs]
+    res = ranks[0]
+    got = {r: dict(np.load(root / ("rank0-r%d.npz" % r))) for r in (1, 2)}
+    with uncounted(fns):
+        ref_a = DeviceEngine(single.bitmatrix, device=DEVICE)  # classic layout: kernel A on words
+        counts, exact = (t.cpu().numpy() for t in plain.batched_counts(
+            ref_a.words, torch.from_numpy(idx).to(DEVICE), torch.from_numpy(mask).to(DEVICE)))
+        want_c = single.engine.counts_batch(idx, mask, N)
+        want_s = single.engine.counts_batch_seqs(padded, lens, K_LEN, H, N)
+        want_p = single.engine.presence_matrix(single.engine.and_rows(pidx), N)
+        ref_ms = {
+            "query": median_ms(lambda: [t.cpu() for t in ref_a._reduce(idx, mask)]),
+            "grouped": median_ms(lambda: single.engine.counts_batch(idx, mask, N)),
+            "seqs": median_ms(lambda: single.engine.counts_batch_seqs(padded, lens, K_LEN, H, N)),
+            "presence": median_ms(lambda: single.engine.presence_matrix(
+                single.engine.and_rows(pidx), N)),
+        }
+        del ref_a
+    b = len(seqs)
+    r1, r2 = got[1], got[2]
+    check(np.array_equal(r1["query0"], counts) and np.array_equal(r1["query1"],
+                                                                  exact.view(np.uint32)),
+          "the fleet's query (A) equals kernel A's plain version on the whole matrix")
+    for r in (1, 2):
+        check(np.array_equal(got[r]["grouped0"][:, :N], want_c),
+              "the fleet's query_grouped (C%s) equals the single-device engine's"
+              % (" over row slabs" if r == 2 else ""))
+        bits = np.unpackbits(got[r]["presence0"].view(np.uint8), axis=-1, bitorder="little")
+        check(np.array_equal(bits[:, :N], want_p),
+              "the fleet's presence rows (row shards %d) equal the single-device engine's" % r)
+    check(want_s is not None and np.array_equal(r1["seqs0"][:b, :N], want_s[0])
+          and np.array_equal(r1["seqs1"][:b], want_s[1]),
+          "the fleet's query_seqs (H, E) equals the single-device counts_batch_seqs")
+    for r, counted in enumerate(launches):
+        check(set(counted) == set(DIST_KERNELS),
+              "rank %d launched %s and no other: %s" % (r, DIST_KERNELS, counted))
+        check(set(ranks[r]["kernels"]) == set(DIST_KERNELS),
+              "rank %d held %s to their plain versions on its steps' inputs: %s"
+              % (r, DIST_KERNELS, sorted(ranks[r]["kernels"])))
+    total = {k: sum(c.get(k, 0) for c in launches) for k in DIST_KERNELS}
+    shards = {}
+    for r, x in enumerate(ranks):
+        for kname, err in x["max_err"].items():
+            errors.max[kname] = max(errors.max[kname], err)
+        for kname, rows in x["kernels"].items():
+            for row in rows:
+                shards.setdefault(kname, []).append(row)
+                print("phase %d distributed kernel %s [%s]: %s %s shard %s (%s) %.4f ms vs plain "
+                      "PyTorch %.4f ms, bound %.4f ms by bytes (%.1f MB), %.3f of bound (cold L2), "
+                      "equal to its plain version"
+                      % (number, kname, gpu, row["index"], row["mesh"], row["shard"], row["shape"],
+                         row["ms"], row["plain_ms"], row["bound_ms"], row["mb"],
+                         row["bound_ms"] / row["ms"]), flush=True)
+        print("phase %d distributed [%s]: rank %d's %d cols chunks equal kernel D's plain version"
+              % (number, gpu, r, x["chunks"]), flush=True)
+    for rs in ("r1", "r2"):
+        for op, t in res[rs].items():
+            own = ["rank %d %.3f ms (its first call, which may place: %.3f ms)"
+                   % (r, x["parts_" + rs][op]["median"], x["parts_" + rs][op]["first"])
+                   for r, x in enumerate(ranks)]
+            print("phase %d distributed service [%s] %s%s: fleet dispatch median of %d %.3f ms "
+                  "(%s); rank 0's legs, median ms: %s; each rank's own part, median: %s; "
+                  "single-device %.3f ms (%s)"
+                  % (number, gpu, op, " (2 row shards)" if rs == "r2" else "", DIST_REPS,
+                     t["total"], json.dumps([round(x, 3) for x in t["times"]]),
+                     ", ".join("%s %.3f" % (leg, t[leg]) for leg in LEGS), ", ".join(own),
+                     ref_ms[op][0], json.dumps([round(x, 3) for x in ref_ms[op][1]])), flush=True)
+    print("phase %d distributed service [%s]: 2 ranks on %s, mesh %s then %s + 2 row shards, "
+          "the minimizer/16 rows.bin mmap; B = %d, K = %d, U = %d, L = %d; every output equal to "
+          "the single-device engine's; each rank's placements %s B (row shards: %s B); "
+          "launches rank 0 %s, rank 1 %s; the fleet took %.1f s"
+          % (number, gpu, DIST_DEVICE, DIST_MESH, DIST_MESH, b, idx.shape[1], utile.shape[1],
+             geom[0].shape[1], res["held_r1"], res["held_r2"], json.dumps(launches[0]),
+             json.dumps(launches[1]), fleet_s), flush=True)
+    return total, shards
+
+
+def serve_fleet(number: int, gpu: str, name: str, single, seqs, root: Path, fns) -> None:
+    """``python -m bigsi_tpu_torch serve --distributed`` on both ranks of
+    index ``name``; rank 0's answers must equal the single-device
+    handle's; SIGINT to rank 0 stops both."""
+    import os
+    import signal
+    import urllib.error
+
+    import yaml
+
+    from bigsi_tpu_torch.__main__ import result_dict
+
+    cfg_path = root / ("%s.yaml" % name.replace("/", "-"))
+    cfg_path.write_text(yaml.safe_dump(dict(dist_config(name, root), mesh=DIST_MESH)))
+    fasta = root / "queries.fasta"
+    fasta.write_text("".join(">q%d\n%s\n" % (i, s) for i, s in enumerate(seqs)))
+    coord, http_port = free_port(), free_port()
+    cmds, envs = [], []
+    for r in range(DIST_WORLD):
+        cmds.append([sys.executable, "-m", "bigsi_tpu_torch", "serve", "--distributed", "-c",
+                     str(cfg_path), "--host", "127.0.0.1", "--port", str(http_port)])
+        envs.append(dict(os.environ, PYTHONPATH=str(ROOT),
+                         BIGSI_TPU_COORDINATOR="127.0.0.1:%d" % coord,
+                         BIGSI_TPU_NUM_PROCESSES=str(DIST_WORLD), BIGSI_TPU_PROCESS_ID=str(r)))
+    base = "http://127.0.0.1:%d" % http_port
+    q20 = "".join(seqs)[:20_000]
+    t0 = time.perf_counter()
+    with Fleet("serve-" + name.replace("/", "-"), root, cmds, envs) as fleet:
+        while True:
+            check(fleet.alive(), "both ranks of %s are up" % name)
+            try:
+                http_json(base + "/")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                check(time.perf_counter() - t0 < RANK_TIMEOUT, "rank 0 of %s answers" % name)
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+
+        def get(s, t, score=False):
+            q = {"seq": s, "threshold": t, **({"score": 1} if score else {})}
+            return http_json(base + "/search?" + urllib.parse.urlencode(q))
+
+        def bulk(t):
+            return http_json(base + "/bulk_search?" + urllib.parse.urlencode(
+                {"fasta": str(fasta), "threshold": t}))
+
+        with uncounted(fns):
+            compared = 0
+            for s, t, score in ((seqs[0], 1.0, False), (q20, 0.7, False), (seqs[1], 0.7, True)):
+                check(get(s, t, score) == result_dict(s, t, single.search(s, t, score)),
+                      "%s distributed GET /search of %d bp at %.1f%s equals the single-device "
+                      "handle's" % (name, len(s), t, " scored" if score else ""))
+                compared += 1
+            for t in (1.0, 0.7):
+                want = [result_dict(s, t, r) for s, r in zip(seqs, single.search_batch(seqs, t))]
+                check(bulk(t) == want, "%s distributed /bulk_search at %.1f equals the "
+                      "single-device search_batch" % (name, t))
+                compared += len(seqs)
+            burst = seqs[8:16]
+            with ThreadPoolExecutor(max_workers=len(burst)) as pool:
+                outs = list(pool.map(lambda s: get(s, 0.7), burst))
+            check(outs == [result_dict(s, 0.7, single.search(s, 0.7)) for s in burst],
+                  "%s: 8 concurrent GETs equal the single-device handle's" % name)
+            compared += len(burst)
+            try:
+                http_json(base + "/insert?bloomfilter=x&sample=y", {})
+                status = 200
+            except urllib.error.HTTPError as e:
+                status = e.code
+            check(status == 403, "%s: POST /insert answers 403 (got %d)" % (name, status))
+            before = http_json(base + "/metrics")["timers"]
+            fleet_ms = median_ms(lambda: bulk(1.0))
+            after = http_json(base + "/metrics")["timers"]
+            single_ms = median_ms(lambda: single.search_batch(seqs, 1.0))
+        # rank 0's own timers over those 6 calls: the fleet's dispatch
+        # (search.batch_counts) and result building, per call
+        split = {part: (after[timer]["total_s"] - before.get(timer, {}).get("total_s", 0.0))
+                 * 1e3 / (DIST_REPS + 1) for part, timer in BATCH_PARTS.items()}
+        t1 = time.perf_counter()
+        fleet.procs[0].send_signal(signal.SIGINT)
+        fleet.finish(STOP_TIMEOUT)
+        stop_s = time.perf_counter() - t1
+    print("phase %d serve --distributed %s [%s]: 2 ranks on %s, mesh %s; rank 0 answered after "
+          "%.1f s; %d result dicts equal the single-device handle's (GET /search of %d bp and %d "
+          "bp, one scored; /bulk_search of %d records at 1.0 and 0.7; 8 concurrent GETs), POST "
+          "/insert 403; /bulk_search at 1.0 median of %d %.3f ms (%s; rank 0's mean a call: "
+          "search.batch_counts %.3f ms, search.batch_results %.3f ms) beside the single-device "
+          "search_batch %.3f ms (%s); SIGINT stopped both ranks in %.1f s"
+          % (number, name, gpu, DIST_DEVICE, DIST_MESH, up_s, compared, QUERY_LEN, len(q20),
+             len(seqs), DIST_REPS, fleet_ms[0], json.dumps([round(t, 3) for t in fleet_ms[1]]),
+             split["counts"], split["results"], single_ms[0],
+             json.dumps([round(t, 3) for t in single_ms[1]]), stop_s), flush=True)
+
+
+def phase_distributed(number: int, gpu: str, gen, rng, errors: Errors, fns) -> tuple[dict, dict]:
+    """Multi-process serving on one card: two indexes on disk, the
+    service fleet, then ``serve --distributed`` of each.  -> (the service
+    ranks' launches summed, their kernels' timings on the fleet's
+    inputs)."""
+    import gc
+    import shutil
+
+    import torch
+
+    from bigsi_tpu_torch import BIGSI
+    from bigsi_tpu_torch.synth import bloom_density, synth_index
+
+    t0 = time.perf_counter()
+    root = WORK / "distributed"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    usage = shutil.disk_usage(root)
+    print("phase %d distributed: %s has %.1f GB free of %.1f GB; writing 2 indexes of %.1f GB"
+          % (number, root, usage.free / 1e9, usage.total / 1e9, M * W * 4 / 1e9), flush=True)
+    try:
+        planted = [random_seq(rng, PLANTED_LEN) for _ in range(PLANTED)]
+        seqs = make_queries(rng, planted)
+        singles = {}
+        with uncounted(fns):
+            for name in DIST_INDEXES:
+                config = dist_config(name, root)
+                synth_index(config, sample_names(), planted,
+                            bloom_density(H, KMERS_PER_SAMPLE, M), gen)
+                singles[name] = BIGSI(config, device=DEVICE)
+        made_s = time.perf_counter() - t0
+        launches, shards = service_fleet(number, gpu, singles[HEADLINE], seqs, root, fns, errors)
+        for name in DIST_INDEXES:
+            serve_fleet(number, gpu, name, singles[name], seqs, root, fns)
+        del singles
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("phase %d distributed [%s]: indexes written in %.1f s; the phase took %.1f s"
+          % (number, gpu, made_s, time.perf_counter() - t0), flush=True)
+    return launches, shards
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    seed = ap.parse_args().seed
+    # one rank of phase 14's service fleet (the script starts them itself)
+    ap.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-dir", type=Path, default=None, help=argparse.SUPPRESS)
+    opts = ap.parse_args()
+    seed = opts.seed
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         sys.exit(1)
+    if opts.dist_rank is not None:
+        dist_rank(opts.dist_rank, opts.dist_port, opts.dist_dir)
+        return
     fns = kernel_fns()  # the port, from this checkout
 
     gpu = phase_device()
@@ -2727,6 +3330,12 @@ def main() -> None:
     for k in BUILD_KERNELS:
         launches[k] += built[k]
     mesh_ms, meshed = phase_mesh(number + 4, gpu, runs, gen, rng, errors, fns)
+    runs.clear()  # the card's memory to the ranks of phase 14
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_launched, dist_ms = phase_distributed(number + 5, gpu, gen, rng, errors, fns)
     loaded = sorted(m for m in sys.modules
                     if m in ("bigsi_tpu", "jax") or m.startswith(("bigsi_tpu.", "jax.")))
     check(not loaded, "neither bigsi_tpu nor jax was imported: %s" % loaded)
@@ -2743,6 +3352,10 @@ def main() -> None:
         if k["name"] in MESH_KERNELS:
             k["mesh_launches"] = meshed[k["name"]]
             k["mesh_shards"] = mesh_ms.get(k["name"], [])
+        k["dist_launches"] = dist_launched.get(k["name"], 0)
+        if k["name"] in DIST_KERNELS:
+            k["dist_shards"] = [{x: r[x] for x in ("index", "mesh", "shard", "ms", "plain_ms",
+                                                   "bound_ms")} for r in dist_ms.get(k["name"], [])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
