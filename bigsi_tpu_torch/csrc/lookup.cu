@@ -37,9 +37,11 @@
 //   bisection probe scripts/bisect_kernel.py:49 (S3).
 //
 // Kernels F and G, gather_rows and tile_xor, are the probes' kernels,
-// kernel H, seq_streams, is the seq serving arm's prep, and kernels I, J
+// kernel H, seq_streams, is the seq serving arm's prep, kernels I, J
 // and K, kmer_rows, bloom_scatter and bloom_transpose, hash k-mers and
-// build an index on the card: each is described at its code below.
+// build an index on the card, and kernel L, presence_rows, gives
+// scoring's per-k-mer presence rows: each is described at its code
+// below.
 //
 // What bounds kernels A, B and C on an H100: gathered bytes, at random
 // rows.  At m = 2.5e7 and W = 32 the matrix is 3.2 GB, far beyond the 50
@@ -2111,6 +2113,146 @@ bloom_transpose_kernel(const unsigned* __restrict__ blooms, int N, int64_t MW, i
     }
   }
 }
+
+// -- kernel L: presence rows ------------------------------------------------
+//
+// presence_rows (kernel L) replaces the XLA programs of scoring's presence
+// rows, one jitted program per scored query: bigsi_tpu/index/
+// device_engine.py:_and_rows_fat (classic: the AND of a k-mer's h rows),
+// :_blocked_and (ops/lookup.py:blocked_presence: the AND of the tile rows
+// a slot mask selects) and :_cols_and (ops/lookup.py:cols_presence: the
+// cols compare, packed to bits).  Per k-mer it writes the presence row
+// out uint32[K, W], bit n % 32 of word n / 32 set iff sample n holds the
+// k-mer: no counts, no AND over k-mers.  The row-major sources reuse
+// kernels A's, B's and C's item fetch (ClassicRows; SlotRows at R = 1):
+// block (kc k-mers, 32-word chunk) stages its k-mers' row ids or tiles
+// and masks, then each warp takes whole k-mers, lane l owning word 32 *
+// chunk + l, so a warp reads whole 128-byte row segments and writes one
+// 128-byte segment of out per k-mer.  The cols source is kernel E's
+// compare: a warp takes one k-mer, its 32 lanes the 32 samples of each
+// word in turn, and a ballot of (cols[tile, n] & g) == g is the word.
+// For the row slabs of a mesh or a fleet, the tiled sources take a tile
+// window [t0, t1) of the matrix they are given (its first tile being
+// tile t0): a k-mer whose tile lies outside gives 0, not the AND
+// identity, so the slabs' rows add (or OR) into the whole.
+//
+// What bounds it: bytes, a few per k-mer.  At K = 512, h = 3, W = 32 it
+// reads 1,536 rows of 128 bytes and writes 64 KB (about 0.27 MB, 0.08 us
+// at 3.35 TB/s), so one call is a launch; scoring runs it once per scored
+// query.  Nothing here is tuned: it is the simple form of the three
+// programs in one launch.
+
+constexpr int kLItems = 32;  // k-mers a presence block stages, at most
+
+// Stages k-mer i of a presence block at `at` -> whether it lies in the
+// tile window [t0, t1); a classic k-mer has no tile and always does.  A
+// slot outside the window stages mask 0, which reads no row.
+__device__ __forceinline__ bool stage_presence(const ClassicRows& rows, int at, int i, int, int) {
+  rows.stage(at, i, 1ull);
+  return true;
+}
+__device__ __forceinline__ bool stage_presence(const SlotRows& rows, int at, int i, int t0,
+                                               int t1) {
+  const int32_t t = rows.tile[i];
+  const bool in = t >= t0 && t < t1;
+  rows.s_mask[at] = in ? rows.key(i) : 0ull;
+  rows.s_tile[at] = in ? t - t0 : 0;
+  return in;
+}
+
+// grid (ceil(K / kc), ceil(W / 32)): block (x, chunk) writes out[k, 32 *
+// chunk .. + 32) for its kc k-mers k.  Dynamic shared memory: [kc] staged
+// k-mers (Rows::staged_bytes each).
+template <typename Rows>
+__global__ void __launch_bounds__(kBThreads)
+presence_rows_kernel(const unsigned* __restrict__ words, int W, Rows rows, int kc, int t0,
+                     int t1, int32_t* __restrict__ out) {
+  extern __shared__ unsigned long long s_stage[];
+  __shared__ bool s_in[kLItems];
+  rows.bind(0, s_stage, kc);
+  const int k0 = blockIdx.x * kc;
+  const int n = min(kc, rows.items() - k0);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    s_in[i] = stage_presence(rows, i, k0 + i, t0, t1);
+  }
+  __syncthreads();
+  const int w = blockIdx.y * 32 + (threadIdx.x & 31);
+  const bool live = w < W;
+  const unsigned* col = words + w;
+  for (int e = threadIdx.x >> 5; e < n; e += kBWarps) {
+    unsigned v[kBRows];
+    rows.first(v, e, n, col, W, live);
+    unsigned c = v[0];
+#pragma unroll
+    for (int i = 1; i < kBRows; ++i) c &= v[i];
+    rows.rest(c, e, col, W, live);
+    if (live) out[static_cast<size_t>(k0 + e) * W + w] = s_in[e] ? static_cast<int32_t>(c) : 0;
+  }
+}
+
+template <typename Rows>
+int launch_presence(const void* words, int W, const Rows& rows, int K, int t0, int t1,
+                    void* out, cudaStream_t stream) {
+  const size_t per_item = rows.staged_bytes();
+  const int kc = static_cast<int>(
+      std::max<size_t>(1, std::min<size_t>(kLItems, kStageBytes / per_item)));
+  const dim3 grid((K + kc - 1) / kc, (W + 31) / 32);
+  presence_rows_kernel<Rows><<<grid, kBThreads, kc * per_item, stream>>>(
+      static_cast<const unsigned*>(words), W, rows, kc, t0, t1, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cols source: cols T[T_local, W * 32] (uint8, uint16 or uint32 bits);
+// tile, mask as SlotRows's at R = 1.  grid (ceil(K / kBWarps), ceil(W /
+// 32)): warp i of block (x, chunk) takes k-mer kBWarps * x + i and the
+// chunk's words in turn, its lanes the 32 samples of a word, so a load
+// reads 32 consecutive elements; kLInFlight words' loads are issued
+// before their ballots.  Lane j keeps the ballot of word j, and the warp
+// stores its row's chunk in one 128-byte write.
+constexpr int kLInFlight = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kBThreads)
+presence_cols_kernel(const T* __restrict__ cols, int W, const int32_t* __restrict__ tile,
+                     const int64_t* __restrict__ mask, int K, int t0, int t1,
+                     int32_t* __restrict__ out) {
+  constexpr unsigned kField = sizeof(T) == 4 ? kAllOnes : (1u << (8 * (sizeof(T) & 3))) - 1u;
+  const int k = blockIdx.x * kBWarps + (threadIdx.x >> 5);
+  if (k >= K) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int w0 = blockIdx.y * 32;
+  const int nw = min(32, W - w0);
+  int32_t* row = out + static_cast<size_t>(k) * W + w0;
+  const int32_t t = tile[k];
+  if (t < t0 || t >= t1) {  // outside the window: 0
+    if (lane < nw) row[lane] = 0;
+    return;
+  }
+  const unsigned g = static_cast<unsigned>(mask[k]) & kField;  // the mask cut to the cols type
+  const T* src = cols + static_cast<size_t>(t - t0) * W * 32 + static_cast<size_t>(w0) * 32 + lane;
+  unsigned mine = 0u;
+  for (int j0 = 0; j0 < nw; j0 += kLInFlight) {
+    unsigned x[kLInFlight];
+#pragma unroll
+    for (int j = 0; j < kLInFlight; ++j) x[j] = j0 + j < nw ? src[(j0 + j) * 32] : 0u;
+#pragma unroll
+    for (int j = 0; j < kLInFlight; ++j) {
+      const unsigned bits = __ballot_sync(kAllOnes, (x[j] & g) == g);
+      if (lane == j0 + j) mine = bits;
+    }
+  }
+  if (lane < nw) row[lane] = static_cast<int32_t>(mine);
+}
+
+template <typename T>
+int launch_presence_cols(const void* cols, int W, const void* tile, const void* mask, int K,
+                         int t0, int t1, void* out, cudaStream_t stream) {
+  const dim3 grid((K + kBWarps - 1) / kBWarps, (W + 31) / 32);
+  presence_cols_kernel<T><<<grid, kBThreads, 0, stream>>>(
+      static_cast<const T*>(cols), W, static_cast<const int32_t*>(tile),
+      static_cast<const int64_t*>(mask), K, t0, t1, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 }  // namespace
 
 extern "C" {
@@ -2329,6 +2471,45 @@ int bloom_transpose(const void* blooms, int N, int64_t MW, int64_t m, int W, voi
   bloom_transpose_kernel<<<grid, kTrThreads, kTrSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(blooms), N, MW, m, W, static_cast<unsigned*>(words));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel L, presence rows; out int32[K, W] (uint32 bits).  The row
+// sources: words uint32[m, W] and row_idx int32[K, h], every id in [0, m)
+// (classic); words uint32[(t1 - t0) * tile_rows or more, W], the tiles
+// from t0 on, tile int32[K] and smask int64[K] (slot; tile_rows in [1,
+// 64]).  A tile outside [t0, t1) gives a row of 0.  K >= 1.
+int presence_rows_classic(const void* words, int W, const void* row_idx, int K, int h,
+                          void* out, void* stream) {
+  if (K <= 0 || W <= 0 || (W + 31) / 32 > 65535 || h <= 0 ||
+      static_cast<size_t>(h) * sizeof(int32_t) > kStageBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const ClassicRows rows{static_cast<const int32_t*>(row_idx), nullptr, K, h, nullptr};
+  return launch_presence(words, W, rows, K, 0, 1, out, static_cast<cudaStream_t>(stream));
+}
+
+int presence_rows_slot(const void* words, int W, const void* tile, const void* smask, int K,
+                       int tile_rows, int t0, int t1, void* out, void* stream) {
+  if (K <= 0 || W <= 0 || (W + 31) / 32 > 65535 || tile_rows < 1 || tile_rows > 64) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const SlotRows rows{static_cast<const int32_t*>(tile), static_cast<const int64_t*>(smask), K, 1,
+                      tile_rows, nullptr, nullptr, 0ull};
+  return launch_presence(words, W, rows, K, t0, t1, out, static_cast<cudaStream_t>(stream));
+}
+
+// The cols source: cols [(t1 - t0) or more, W * 32] of elem_bytes 1, 2 or
+// 4, the tiles from t0 on; tile int32[K]; smask int64[K].
+int presence_rows_cols(const void* cols, int W, int elem_bytes, const void* tile,
+                       const void* smask, int K, int t0, int t1, void* out, void* stream) {
+  if (K <= 0 || W <= 0 || (W + 31) / 32 > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (elem_bytes) {
+    case 1: return launch_presence_cols<uint8_t>(cols, W, tile, smask, K, t0, t1, out, s);
+    case 2: return launch_presence_cols<uint16_t>(cols, W, tile, smask, K, t0, t1, out, s);
+    case 4: return launch_presence_cols<uint32_t>(cols, W, tile, smask, K, t0, t1, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* lookup_error_string(int code) {

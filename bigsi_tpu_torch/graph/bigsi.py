@@ -670,7 +670,8 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
 
     def _batch_results(self, per_query, counts, threshold, score_info=None):
         # timed beside "search.batch_counts", so one search_batch splits
-        # into k-mer prep, engine counts and results
+        # into k-mer prep, engine counts and results; a scored batch's
+        # results hold its "search.presence" and "search.score" spans
         with phase("search.batch_results"):
             out = []
             for i, (row_idx, num_kmers) in enumerate(per_query):
@@ -766,16 +767,20 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         # matching ``bigsi.py:232-239`` which stacks one row per k-mer of
         # the sliding window.  Presence strings are built in one
         # vectorized pass (bits + 0x30 -> ASCII), not per-char joins.
-        X = self.engine.presence_matrix(packed, self.bitmatrix.num_cols)
-        if side_pres is not None:
-            X = np.concatenate([X, side_pres.astype(X.dtype)], axis=1)
-        X = X[inverse]
-        chars = X.astype(np.uint8) + np.uint8(0x30)
-        for res in results:
-            col = chars[:, res.colour].tobytes().decode("ascii")
-            score_results = self.scorer.score(col)
-            score_results["kmer-presence"] = col
-            res.add_score(score_results)
+        # search.presence times the engine's presence rows (kernel L on the
+        # card), search.score the strings and the scorer.
+        with phase("search.presence"):
+            X = self.engine.presence_matrix(packed, self.bitmatrix.num_cols)
+        with phase("search.score"):
+            if side_pres is not None:
+                X = np.concatenate([X, side_pres.astype(X.dtype)], axis=1)
+            X = X[inverse]
+            chars = X.astype(np.uint8) + np.uint8(0x30)
+            for res in results:
+                col = chars[:, res.colour].tobytes().decode("ascii")
+                score_results = self.scorer.score(col)
+                score_results["kmer-presence"] = col
+                res.add_score(score_results)
 
     # -- mutation -----------------------------------------------------
 

@@ -380,12 +380,22 @@ def serve_distributed(config, host="0.0.0.0", port=8000, device=None) -> None:
     HTTP, the other ranks run their parts of each dispatch
     (``run_worker_loop``).  Serving is read-only: mutating routes answer
     403; rebuild or merge offline, then restart the fleet.  When rank 0's
-    server ends (SIGINT included) it stops the other ranks."""
-    import torch.distributed as dist
-
+    server ends (SIGINT included) it stops the other ranks.  Every rank
+    leaves the process group before it returns."""
     from bigsi_tpu_torch.parallel import distributed
 
     distributed.initialize()
+    try:
+        _serve_rank(config, host, port, device)
+    finally:
+        distributed.shutdown()
+
+
+def _serve_rank(config, host, port, device) -> None:
+    """This rank's part of :func:`serve_distributed`, in the process
+    group."""
+    import torch.distributed as dist
+
     cfg = dict(config, engine="distributed")
     graph = BIGSI(cfg, device=device)
     # the collective engine is graph.engine, except on verified (screen:)

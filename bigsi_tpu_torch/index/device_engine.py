@@ -68,6 +68,7 @@ from bigsi_tpu_torch.ops.fused_lookup import (
     cols_counts,
     grouped_tile_counts,
     pack_tile_cols,
+    presence_rows,
     seq_streams,
     tile_counts,
 )
@@ -382,11 +383,11 @@ class DeviceEngine:
             valid = torch.ones(idx.shape[0], dtype=torch.bool, device=self.device)
             tile, smask = tile_streams(idx, valid, self.tile_rows)
             if self.cols is not None:
-                rows = plain.cols_presence(self.cols, tile, smask)
+                rows = presence_rows(self.cols, "cols", tile, smask)
             else:
-                rows = plain.blocked_presence(self.words, tile, smask, self.tile_rows)
+                rows = presence_rows(self.words, "slot", tile, smask, self.tile_rows)
         else:
-            rows = plain.and_rows(self.words, idx)
+            rows = presence_rows(self.words, "classic", idx)
         host = rows.cpu().numpy().view(np.uint32)
         bits = np.unpackbits(host.view(np.uint8), axis=-1, bitorder="little")
         return bits[:, :num_cols]

@@ -42,6 +42,10 @@
 * :func:`bloom_transpose` is kernel K.  It replaces the XLA program
   ``bigsi_tpu/ops/build_jax.py:device_transpose`` (blooms to the
   bitslice matrix).
+* :func:`presence_rows` is kernel L.  It replaces the XLA programs of
+  scoring's presence rows, ``bigsi_tpu/index/device_engine.py:_and_rows_fat``
+  (classic), ``:_blocked_and`` (slot) and ``:_cols_and`` (cols), each as
+  one launch.
 
 A wrapper checks its arguments, then runs the plain version from
 :mod:`bigsi_tpu_torch.ops.lookup` (kernel H's from
@@ -97,10 +101,14 @@ def _library() -> ctypes.CDLL:
     lib.kmer_rows.argtypes = [ptr, i64, i32, i32, ptr, i32, i32, i32, i32, ptr, ptr]
     lib.bloom_scatter.argtypes = [ptr, i64, i32, ptr, i32, i32, i32, i32, i64, ptr, ptr]
     lib.bloom_transpose.argtypes = [ptr, i32, i64, i64, i32, ptr, ptr]
+    lib.presence_rows_classic.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr]
+    lib.presence_rows_slot.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
+    lib.presence_rows_cols.argtypes = [ptr, i32, i32, ptr, ptr, i32, i32, i32, ptr, ptr]
     for fn in (lib.classic_counts, lib.tile_counts, lib.grouped_tile_counts,
                lib.pack_tile_cols, lib.cols_counts, lib.tile_counts_only,
                lib.gather_rows, lib.tile_xor, lib.seq_streams, lib.kmer_rows,
-               lib.bloom_scatter, lib.bloom_transpose):
+               lib.bloom_scatter, lib.bloom_transpose, lib.presence_rows_classic,
+               lib.presence_rows_slot, lib.presence_rows_cols):
         fn.restype = i32
     lib.lookup_error_string.argtypes = [i32]
     lib.lookup_error_string.restype = ctypes.c_char_p
@@ -555,3 +563,75 @@ def bloom_transpose(blooms: torch.Tensor, m: int, rows_chunk: int = 4096) -> tor
 
 
 bloom_transpose.launches = 0
+
+
+def presence_rows(matrix: torch.Tensor, source: str, idx: torch.Tensor,
+                  smask: torch.Tensor | None = None, tile_rows: int = 1,
+                  window: tuple[int, int] | None = None) -> torch.Tensor:
+    """Kernel L: scoring's presence rows, int32[K, W] (u32 bits: bit n %
+    32 of word n // 32 set iff sample n holds the k-mer), in one launch;
+    the contract of :func:`bigsi_tpu_torch.ops.lookup.presence_rows`.
+
+    ``source`` "classic": matrix int32[m, W], idx int32[K, h] (every id in
+    [0, m)).  "slot": matrix int32[T * tile_rows, W] (tile_rows 1..64),
+    idx int32[K] tile ids, smask int64[K].  "cols": matrix cols[T, W * 32]
+    (uint8, int16 or int32), idx and smask as for "slot".  ``window`` (t0,
+    t1), tiled sources only, with t1 - t0 <= T: the matrix holds tiles t0
+    onwards, and a k-mer whose tile lies outside gives 0; None is (0, T).
+    """
+    if source not in plain.PRESENCE_SOURCES:
+        raise ValueError("source must be one of %s, got %r" % (plain.PRESENCE_SOURCES, source))
+    if not isinstance(matrix, torch.Tensor) or matrix.dim() != 2:
+        raise ValueError("the matrix must be a 2-d tensor")
+    dev = matrix.device
+    if source == "cols":
+        if matrix.dtype not in COLS_DTYPES or matrix.shape[1] % 32:
+            raise TypeError("cols must be uint8, int16 or int32 with a multiple of 32 columns")
+        w, tiles = matrix.shape[1] // 32, matrix.shape[0]
+    else:
+        w = matrix.shape[1]
+        if source == "slot":
+            if not 1 <= tile_rows <= MAX_TILE_ROWS or matrix.shape[0] % tile_rows:
+                raise ValueError(
+                    "tile_rows must be in [1, %d] and divide the matrix's %d rows, got %d"
+                    % (MAX_TILE_ROWS, matrix.shape[0], tile_rows)
+                )
+            tiles = matrix.shape[0] // tile_rows
+    check_tensor("matrix", matrix, matrix.dtype if source == "cols" else torch.int32,
+                 matrix.shape, dev)
+    if source == "classic":
+        if not isinstance(idx, torch.Tensor) or idx.dim() != 2:
+            raise ValueError("classic presence takes row ids [K, h]")
+        k, h = idx.shape
+        check_tensor("idx", idx, torch.int32, (k, h), dev)
+        if smask is not None or window is not None:
+            raise ValueError("classic presence takes no slot masks and no tile window")
+        if not 1 <= h <= MAX_HASHES:
+            raise ValueError("presence_rows takes 1..%d rows per k-mer, got %d" % (MAX_HASHES, h))
+    else:
+        if not isinstance(idx, torch.Tensor) or idx.dim() != 1:
+            raise ValueError("%s presence takes tile ids [K]" % source)
+        k = idx.shape[0]
+        check_tensor("idx", idx, torch.int32, (k,), dev)
+        check_tensor("smask", smask, torch.int64, (k,), dev)
+        window = (0, tiles) if window is None else tuple(int(t) for t in window)
+        if not (len(window) == 2 and 0 <= window[0] <= window[1] < 2**31
+                and window[1] - window[0] <= tiles):
+            raise ValueError("window must be (t0, t1) with 0 <= t0 <= t1 and t1 - t0 <= %d "
+                             "tiles, got %r" % (tiles, window))
+    if device_kind(matrix) == "cpu":
+        return plain.presence_rows(matrix, source, idx, smask, tile_rows, window)
+    out = torch.empty((k, w), dtype=torch.int32, device=dev)
+    if k == 0 or w == 0:
+        return out
+    if source == "classic":
+        args = (matrix.data_ptr(), w, idx.data_ptr(), k, h)
+    elif source == "slot":
+        args = (matrix.data_ptr(), w, idx.data_ptr(), smask.data_ptr(), k, tile_rows, *window)
+    else:
+        args = (matrix.data_ptr(), w, matrix.dtype.itemsize, idx.data_ptr(), smask.data_ptr(), k,
+                *window)
+    return launch(presence_rows, dev, args, (out,), "presence_rows_" + source)[0]
+
+
+presence_rows.launches = 0

@@ -6,7 +6,9 @@ Counterparts of ``bigsi_tpu/ops/lookup.py`` (``and_rows_jnp``,
 ``build_grouped_streams``, ``grouped_counts``, ``cols_dtype``,
 ``pack_tile_cols``, ``grouped_counts_cols``, ``cols_presence``),
 re-stated here because that module imports jax, with
-``make_full_query_step`` (kernels I and A on the card), and the plain versions
+``make_full_query_step`` (kernels I and A on the card),
+``presence_rows`` (the three presence programs behind one call, with a
+tile window for row slabs), and the plain versions
 of the probes' kernels (``gather_rows``, ``tile_xor``, and
 ``blocked_counts`` without exact); ``field_hits`` and
 ``grouped_counts_cols_live`` restate kernel E's own arithmetic (its
@@ -300,6 +302,36 @@ def cols_presence(cols, tile, smask) -> torch.Tensor:
     g = cols[tile.long()]  # [K, N]
     sm = narrow_bits(smask, cols.dtype)[:, None]
     return pack_bits((g & sm) == sm)
+
+
+PRESENCE_SOURCES = ("classic", "slot", "cols")
+
+
+def presence_rows(matrix, source: str, idx, smask=None, tile_rows: int = 1, window=None):
+    """Scoring's presence rows (plain kernel L): -> int32[K, W], bit n %
+    32 of word n // 32 set iff sample n holds the k-mer.
+
+    ``source`` "classic": matrix int32[m, W], idx row ids int[K, h] ->
+    :func:`and_rows`.  "slot": matrix int32[T * tile_rows, W], idx tile ids
+    int[K], smask int64[K] -> :func:`blocked_presence`.  "cols": matrix
+    cols[T, W * 32], idx and smask as for "slot" -> :func:`cols_presence`.
+    The tiled sources take the tile window ``(t0, t1)`` (None: ``(0,
+    T)``), the matrix holding tiles t0 onwards: a k-mer whose tile lies
+    outside the window gives 0, so the rows of a mesh's or a fleet's row
+    slabs OR into the whole."""
+    if source == "classic":
+        return and_rows(matrix, idx)
+    if window is None:
+        window = (0, matrix.shape[0] // (1 if source == "cols" else tile_rows))
+    t0, t1 = window
+    tile = idx.long()
+    here = (tile >= t0) & (tile < t1)
+    local = torch.where(here, tile - t0, 0)
+    if source == "slot":
+        rows = blocked_presence(matrix, local, smask, tile_rows)
+    else:
+        rows = cols_presence(matrix, local, smask)
+    return torch.where(here[:, None], rows, 0)
 
 
 def grouped_counts_cols(cols, utile, gmask, n_valid):

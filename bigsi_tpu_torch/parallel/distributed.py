@@ -17,7 +17,7 @@ it unchanged:
   > 1 the row-sharded step (C over slabs);
 * ``query_seqs``: the seq step (kernel H, then E; D packs the cols at
   the first such dispatch);
-* ``presence``: plain ``and_rows`` per shard (the scored path).
+* ``presence``: kernel L per shard or row slab (the scored path).
 
 One transport carries a dispatch: rank 0 broadcasts a fixed int64 header
 (op, k, h, and each array's dtype code and shape) and then one uint8
@@ -59,6 +59,7 @@ from bigsi_tpu_torch.index.device_engine import (
     tile_streams,
 )
 from bigsi_tpu_torch.ops import lookup as plain
+from bigsi_tpu_torch.ops.fused_lookup import presence_rows
 from bigsi_tpu_torch.parallel.sharding import (
     AXIS_BATCH,
     AXIS_KMERS,
@@ -125,6 +126,15 @@ def initialize(
         world_size=num_processes, rank=process_id,
     )
     logger.info("distributed: rank %d of %d", process_id, num_processes)
+
+
+def shutdown() -> None:
+    """Leave the process group (a no-op outside one).  Every rank calls
+    it before its process exits: a gloo group still alive when the
+    interpreter tears down can abort the process (``terminate called
+    without an active exception``) after its work is done."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _process_group() -> tuple[int, int]:
@@ -464,28 +474,33 @@ class DistributedQueryService:
         return self._presence_part(torch.from_numpy(np.ascontiguousarray(idx)))
 
     def _presence_part(self, idx: torch.Tensor) -> torch.Tensor:
-        """Each k-mer's AND of its h rows over this rank's sample shards
-        (plain PyTorch); on row slabs a k-mer's rows (one tile) lie in one
-        slab, and the other slabs give zero."""
+        """Each k-mer's presence row over this rank's sample shards: kernel
+        L once per local shard (the classic source), or on row slabs once
+        per local slab with the slab's tile window (a k-mer's rows, one
+        tile, lie in one slab; the others give zero), ORed."""
         if self.row_shards == 1:
             sub = self.mesh.local(self.rank)
             words = self._placement("words")
-            parts = [plain.and_rows(words[(sub.devices[0, 0, c], c)], idx.to(sub.devices[0, 0, c]))
+            parts = [presence_rows(words[(sub.devices[0, 0, c], c)], "classic",
+                                   idx.to(sub.devices[0, 0, c]))
                      for c in range(sub.shape[AXIS_SAMPLES])]
             return gather_samples(parts, sub.home).cpu()
         sub = self.rows_mesh.local(self.rank)
         slabs = self._placement("slabs")
         q0, _ = self.rows_mesh.box(self.rank, AXIS_ROWS)
+        tile, smask = tile_streams(idx, torch.ones(idx.shape[0], dtype=torch.bool),
+                                   self.tile_rows)
         parts = []
         for c in range(sub.shape[AXIS_SAMPLES]):
             out = None
             for q in range(sub.shape[AXIS_ROWS]):
                 dev = sub.devices[0, q, c]
                 slab = slabs[(dev, c, q)]
-                local = idx.to(dev).long() - (q0 + q) * slab.shape[0]
-                here = ((local[:, 0] >= 0) & (local[:, 0] < slab.shape[0]))[:, None]
-                rows = plain.and_rows(slab, local.clamp(0, slab.shape[0] - 1))
-                out = torch.where(here, rows, 0 if out is None else out)
+                t_loc = slab.shape[0] // self.tile_rows
+                t0 = (q0 + q) * t_loc
+                part = presence_rows(slab, "slot", tile.to(dev), smask.to(dev), self.tile_rows,
+                                     window=(t0, t0 + t_loc))
+                out = part if out is None else out | part.to(out.device)
             parts.append(out)
         # joined on the device, then one blocking copy: a non-blocking copy
         # to the host may still be in flight when the host reads it

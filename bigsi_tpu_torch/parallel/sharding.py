@@ -66,6 +66,7 @@ from bigsi_tpu_torch.ops.fused_lookup import (
     classic_counts,
     cols_counts,
     grouped_tile_counts,
+    presence_rows,
     seq_streams,
 )
 from bigsi_tpu_torch.utils.profiling import phase
@@ -587,7 +588,7 @@ class MeshEngine:
     (the row-sharded step).  ``devices`` is the pool the engine's meshes
     are drawn from where it makes one (no ``mesh``, or row shards); None
     means the CUDA devices.  Single queries are a batch of one through
-    the same step; scoring's presence rows are plain PyTorch per shard.
+    the same step; scoring's presence rows are kernel L per shard.
     """
 
     def __init__(
@@ -767,8 +768,9 @@ class MeshEngine:
         return counts[0, :num_cols]
 
     def presence_matrix(self, packed, num_cols: int) -> np.ndarray:
-        """Scoring's per-k-mer presence [K, num_cols], plain PyTorch on
-        each sample shard (at the first position holding it), the shards
+        """Scoring's per-k-mer presence [K, num_cols]: kernel L
+        (``presence_rows``) once per sample shard, at the first position
+        holding it (once per row slab of it with row shards), the shards
         concatenated."""
         if isinstance(packed, np.ndarray):
             return np.empty((0, num_cols), dtype=np.uint8)
@@ -779,12 +781,12 @@ class MeshEngine:
             dev = mesh.devices[0, 0, c]
             idx = torch.from_numpy(np.ascontiguousarray(packed.row_idx, dtype=np.int32)).to(dev)
             if self.words is not None:
-                parts.append(plain.and_rows(self.words[(dev, c)], idx))
+                parts.append(presence_rows(self.words[(dev, c)], "classic", idx))
                 continue
             tile, smask = tile_streams(idx, torch.ones(idx.shape[0], dtype=torch.bool,
                                                        device=dev), self.tile_rows)
             if self.cols is not None:
-                parts.append(plain.cols_presence(self.cols[(dev, c)], tile, smask))
+                parts.append(presence_rows(self.cols[(dev, c)], "cols", tile, smask))
             else:
                 parts.append(self._slab_presence(c, tile, smask))
         rows = gather_samples(parts, mesh.home).cpu().numpy().view(np.uint32)
@@ -792,21 +794,21 @@ class MeshEngine:
         return bits[:, :num_cols]
 
     def _slab_presence(self, c: int, tile: torch.Tensor, smask: torch.Tensor) -> torch.Tensor:
-        """Presence rows from sample shard c's tiles: each k-mer from the
-        slab that holds its tile (one slab without row shards)."""
+        """Presence rows from sample shard c's tiles: one launch over its
+        tiles, or one per row slab with the slab's tile window (a k-mer's
+        tile lies in one slab, the others give 0), ORed."""
         mesh = self.step_mesh
         if self.row_shards == 1:
-            return plain.blocked_presence(self.tiles[(mesh.devices[0, 0, c], c)], tile, smask,
-                                          self.tile_rows)
+            return presence_rows(self.tiles[(mesh.devices[0, 0, c], c)], "slot", tile, smask,
+                                 self.tile_rows)
         out = None
         for q in range(self.row_shards):
             dev = mesh.devices[0, q, c]
             slab = self.tiles[(dev, c, q)]
             t_loc = slab.shape[0] // self.tile_rows
-            part = plain.blocked_presence(slab, (tile - q * t_loc).clamp(0, t_loc - 1).to(dev),
-                                          smask.to(dev), self.tile_rows).to(tile.device)
-            here = ((tile // t_loc) == q)[:, None]
-            out = torch.where(here, part, 0 if out is None else out)
+            part = presence_rows(slab, "slot", tile.to(dev), smask.to(dev), self.tile_rows,
+                                 window=(q * t_loc, (q + 1) * t_loc)).to(tile.device)
+            out = part if out is None else out | part
         return out
 
 

@@ -39,7 +39,11 @@ k-mers each), the shape of bench.py.  Phases:
    chunks of 7 tiles into slices of one cols; kernel A splits single
    queries and pairs (B 1 and 2, K 512 and 20,000) over blocks and a
    batch of 256 not, at h 1, 3, 5 and 8 (past the 4 rows read ahead),
-   with half- and all-padding queries and K = 0; and a mutation check:
+   with half- and all-padding queries and K = 0; kernel L (presence_rows)
+   at W 1, 33 and 64, K 1, 37 and 300, classic h 1, 3 and 8, slot at
+   tile_rows 8 to 64 and cols of uint8, int16 and int32, masks of 0, of
+   many rows and of rows 32-63, each tiled case whole and as two row
+   slabs with their tile windows; and a mutation check:
    small blocked/32 and
    minimizer/64 indexes on the card, merged and then overwritten in one
    colour, give the host engine's results on a rebuilt engine;
@@ -62,7 +66,11 @@ k-mers each), the shape of bench.py.  Phases:
    and from then on every verify, batched or single, runs on
    DeviceVerifier (kernel A, only the candidates' counts sent back).
    Each runs a single search, a scored search and a scored search_batch
-   of the 256 queries at 0.7 (their times printed), a bulk_search of a
+   of the 256 queries at 0.7 (their times printed, the batch split by
+   the facade's spans search.batch_counts, search.presence, search.score
+   and search.batch_results; kernel L must launch once for the search
+   and once per hit query of the batch, on the verified index, which
+   scores on its classic host engine, never), a bulk_search of a
    256-record FASTA through the port's CLI at thresholds 1.0 and 0.7,
    and 3 GET, 1 POST
    and a burst of 8 concurrent GETs (coalesced by the server's batcher)
@@ -111,7 +119,9 @@ k-mers each), the shape of bench.py.  Phases:
    events (each call's work queued behind a spin that outlasts its host
    part: copies in, A, gather, counts back) beside A alone and A's bound,
    and DeviceVerifier.counts, its staging and the host pass on the host
-   clock;
+   clock; kernel L on every index (the verified one's screen) at the
+   facade's k-mers of a 542 bp and a 20 kb query (K 512 and about
+   20,000), held to its plain version and timed beside it and its bound;
 11. probes: the three probe entry points of bigsi_tpu_torch.scripts
    (probe_multidma, bisect, microbench) run in-process over the
    blocked/32 index's resident words (tile_rows 32: 4 KB tiles; S2 views
@@ -174,11 +184,15 @@ k-mers each), the shape of bench.py.  Phases:
    ids), minimizer/16 on [2, 1, 4] on the seq arm (H per batch shard,
    E per position) and with supports_seq_batch off (E), minimizer/64 on
    [2, 1, 2] (C) and [2, 1, 2, 2] (C over row slabs) and the verified
-   index's screen on [2, 1, 4] (E).  Each handle's search_batch of the
+   index's screen on [2, 1, 4] (E; it scores on the host).  Each
+   handle's search_batch of the
    256 queries at 1.0 and 0.7, search of 542 bp and 20 kb at 1.0 and
    0.7, and scored search and search_batch at 0.7 must equal the
    single-device handle's result dicts; one search_batch must launch
-   its step's kernel once per position and no other; its load (wall
+   its step's kernel once per position and no other, the scored search
+   and search_batch kernel L once per sample shard (and slab) for the
+   search and for each hit query, each of a scored search's L launches
+   (every sample shard and slab) held to its plain version; its load (wall
    time, device peak under the shards plus staging), the median of 5
    search_batch calls split by search.batch_counts beside the
    single-device handle's, and A, C and E on the shards (W_l 16, 11 and
@@ -187,7 +201,7 @@ k-mers each), the shape of bench.py.  Phases:
    split; dropping a handle frees its shards.  Then an interior insert
    on a small [2, 2, 2] mesh index frees the old shards before the new
    ones are placed, and dryrun_multichip(8, device="cuda:0") runs every
-   step once.  Only A, C, D, E and H may launch;
+   step once.  Only A, C, D, E, H and L may launch;
 14. multi-process serving (bigsi_tpu_torch/parallel/distributed.py):
    a classic and a minimizer/16 (w = 19, slot scheme 3, r = 20) index of
    the same size written to disk (storage-engine bigsi-tpu, under
@@ -201,13 +215,15 @@ k-mers each), the shape of bench.py.  Phases:
    query_grouped and presence with 2 row shards (C over slabs); every
    output bit-equal to the single-device engine's on the same inputs
    (query to kernel A's plain version on the whole matrix), each rank's
-   launches counted from 0 (A, C, D, E and H, no other), each op's
+   launches counted from 0 (A, C, D, E, H and L, no other; L once per
+   local sample shard, or slab, a presence op), each op's
    median dispatch of 5 beside the single-device call, split into its
    legs on rank 0's host clock (pad, pack, the header's and the buffer's
    broadcasts, rank 0's part, the gather, the join).  After each
-   service each rank in turn, uncounted, holds A, C, E and H to their
-   plain versions on the inputs of their first launch there and every
-   cols chunk to D's plain version, and times them.  Then, for
+   service each rank in turn, uncounted, holds A, C, E, H and L to their
+   plain versions on the inputs of their first launch there (L also on
+   every shard and slab of its presence part) and every cols chunk to
+   D's plain version, and times them.  Then, for
    each index, both ranks run `python -m bigsi_tpu_torch serve
    --distributed` from the BIGSI_TPU_* variables; GET /search (542 bp,
    20 kb, one scored), /bulk_search of the 256-record FASTA at 1.0 and
@@ -221,7 +237,7 @@ Then a check that no module of bigsi_tpu or jax was loaded, one JSON
 line of the kernels (each with its launches on the main path, phase 13's
 included, its time, its plain version's, the least time its bytes allow
 on an H100 (3.35 TB/s) for this run's inputs, the one-call PyTorch
-yardstick where there is one, for A, C and E their times on the mesh
+yardstick where there is one, for A, C, E and L their times on the mesh
 shards, and the launches of phase 14's service ranks summed as
 dist_launches with their times on the ranks' shards as dist_shards), and
 last the JSON line {"ok": true, "device": {...}}.  Any failure exits
@@ -266,7 +282,7 @@ DEVICE = "cuda"
 HEADLINE_R, HEADLINE_RUN = 20, 10
 DEFAULT_R, DEFAULT_RUN = 6, 6
 SOURCE = "bigsi_tpu_torch/csrc/lookup.cu"
-# the eleven kernels: (name, TPU kernels or XLA program it replaces)
+# the twelve kernels: (name, TPU kernels or XLA program it replaces)
 KERNELS = (
     ("classic_counts", "bigsi_tpu/index/device_engine.py:89"),
     ("tile_counts", "bigsi_tpu/ops/pallas_lookup.py:203, scripts/bisect_kernel.py:49"),
@@ -282,17 +298,21 @@ KERNELS = (
     ("kmer_rows", "bigsi_tpu/ops/hash_jax.py:32, :72, :104; bigsi_tpu/ops/build_jax.py:54-60"),
     ("bloom_scatter", "bigsi_tpu/ops/build_jax.py:41"),
     ("bloom_transpose", "bigsi_tpu/ops/build_jax.py:78"),
+    ("presence_rows", "bigsi_tpu/index/device_engine.py:79, :151, :158"),
 )
 COLS_KERNELS = ("pack_tile_cols", "cols_counts", "seq_streams")
+PRESENCE = "presence_rows"  # kernel L: every scored search on a DeviceEngine
 # the indexes of phases 4-9: name -> (config entries, kernels of its path)
 INDEXES = {
-    "classic": ({"layout": "classic"}, ("classic_counts",)),
-    "blocked/32": ({"layout": "blocked", "tile-rows": 32}, ("tile_counts",)),
+    "classic": ({"layout": "classic"}, ("classic_counts", PRESENCE)),
+    "blocked/32": ({"layout": "blocked", "tile-rows": 32}, ("tile_counts", PRESENCE)),
     "minimizer/16": ({"layout": "minimizer", "tile-rows": 16, "minimizer-window": 19},
-                     COLS_KERNELS),
-    "minimizer/32": ({"layout": "minimizer", "tile-rows": 32}, COLS_KERNELS),
-    "minimizer/64": ({"layout": "minimizer", "tile-rows": 64}, ("grouped_tile_counts",)),
-    # rows.bin classic, screen.bin minimizer/16 w = 19 (the screen's defaults)
+                     COLS_KERNELS + (PRESENCE,)),
+    "minimizer/32": ({"layout": "minimizer", "tile-rows": 32}, COLS_KERNELS + (PRESENCE,)),
+    "minimizer/64": ({"layout": "minimizer", "tile-rows": 64},
+                     ("grouped_tile_counts", PRESENCE)),
+    # rows.bin classic, screen.bin minimizer/16 w = 19 (the screen's
+    # defaults); its scored searches run on the classic host engine
     "verified": ({"layout": "classic", "screen": "minimizer"},
                  ("pack_tile_cols", "cols_counts", "classic_counts")),
 }
@@ -395,6 +415,10 @@ def bound_bytes(name: str, *args) -> int:
         return nbytes(seqs, lens, *outs) + 1
     if name in ("kmer_rows", "bloom_scatter", "bloom_transpose"):  # inputs, outputs
         return nbytes(*args)
+    if name == PRESENCE:  # the rows (or cols rows) its k-mers select, inputs, output
+        from bigsi_tpu_torch.scripts.probe_presence import presence_bytes
+
+        return presence_bytes(*args)
     raise ValueError(name)
 
 
@@ -652,8 +676,9 @@ def phase_kernels(gen, errors: Errors) -> None:
                     classic(words, b, k, h, pad, case)
                     cases += 1
     cases += pack_checks(gen, errors)
+    cases += presence_checks(gen, errors)
     torch.cuda.synchronize()
-    print("phase 3 kernels: all five kernels bit-exact with their plain versions in %d "
+    print("phase 3 kernels: kernels A-E and L bit-exact with their plain versions in %d "
           "cases (slice shapes W=%d m=%d B=%d K=512 h=%d; A at B 1 and 2, K 512 and 20,000 "
           "split over blocks, at all-ones B=1 K=70,000 (counts past 2^16), h 1/3/5/8, "
           "half- and all-padding, K=0; grouped streams of runs of ~%d "
@@ -663,8 +688,66 @@ def phase_kernels(gen, errors: Errors) -> None:
           "uint8, int16 and int32 cols), R 1/6/20, U 7/13/21/37 and 4,000 at R=20 (80,000 "
           "live slots), all-padding queries, B or K of 0; D at tile_rows 1/5/8/12/16/31/32, "
           "W 1/33/64, T 1, 3,001 and 100,003, misaligned words and cols, and packed in odd "
-          "chunks into slices of one cols)"
+          "chunks into slices of one cols; L at W 1/33/64, K 1/37/300, classic h 1/3/8, slot "
+          "at tile_rows 8/16/32/64 and cols of uint8/int16/int32, masks of 0, of many rows and "
+          "of rows 32-63 alone, whole and in two row slabs with their tile windows)"
           % (cases, W, M, B, H, HEADLINE_RUN, HEADLINE_R, DEFAULT_RUN, DEFAULT_R), flush=True)
+
+
+def presence_checks(gen, errors: Errors) -> int:
+    """Kernel L against its plain version at ragged shapes: W 1, 33 and
+    64; K 1, 37 and 300 (not a multiple of a block's 32 k-mers); classic
+    at h 1, 3 and 8 (past the 4 rows read ahead); slot at tile_rows 8,
+    16, 32 and 64 and cols at 8, 16 and 32 (uint8, int16 and int32), with
+    random masks of many rows, masks of 0 (all ones) and at 64 of rows
+    32-63 alone; each tiled case whole and as two row slabs with their
+    tile windows, whose rows must OR to the whole's.  -> the cases."""
+    import torch
+
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import lookup as plain
+
+    def one(case, matrix, source, idx, smask=None, tile_rows=1, window=None):
+        got = fl.presence_rows(matrix, source, idx, smask, tile_rows, window)
+        errors.compare(PRESENCE, (got,), (plain.presence_rows(matrix, source, idx, smask,
+                                                              tile_rows, window),), case)
+        return got
+
+    def slabs(case, matrix, source, tile, smask, tile_rows, tiles):
+        """The whole, then two slabs of it: -> 3 cases."""
+        whole = one(case, matrix, source, tile, smask, tile_rows)
+        joined, r = torch.zeros_like(whole), 1 if source == "cols" else tile_rows
+        for q, (t0, t1) in enumerate(((0, tiles // 2), (tiles // 2, tiles))):
+            joined |= one("%s slab %d" % (case, q), matrix[t0 * r: t1 * r], source, tile, smask,
+                          tile_rows, (t0, t1))
+        check(torch.equal(joined, whole), "L's slabs OR to the whole: %s" % case)
+        return 3
+
+    cases, m = 0, 64 * 97
+    for w in (1, 33, 64):
+        words = torch.randint(-2**31, 2**31, (m, w), generator=gen, device=DEVICE,
+                              dtype=torch.int32)
+        for k in (1, 37, 300):
+            for h in (1, 3, 8):
+                rows = torch.randint(0, m, (k, h), generator=gen, device=DEVICE, dtype=torch.int32)
+                one("classic W=%d K=%d h=%d" % (w, k, h), words, "classic", rows)
+                cases += 1
+            for tr in (8, 16, 32, 64):
+                tiles = m // tr
+                tile = torch.randint(0, tiles, (k,), generator=gen, device=DEVICE,
+                                     dtype=torch.int32)
+                smask = torch.randint(-2**63, 2**63 - 1, (k,), generator=gen, device=DEVICE)
+                if tr < 64:
+                    smask &= (1 << tr) - 1
+                else:
+                    smask[1::5] &= ~0xFFFFFFFF  # rows 32-63 alone
+                smask[::5] = 0
+                case = "W=%d K=%d tile_rows=%d" % (w, k, tr)
+                cases += slabs("slot " + case, words, "slot", tile, smask, tr, tiles)
+                if tr <= 32:
+                    cols = fl.pack_tile_cols(words, tr)
+                    cases += slabs("cols " + case, cols, "cols", tile, smask, tr, tiles)
+    return cases
 
 
 PACK_TILES = (1, 3001, 100_003)  # kernel D's tile counts in phase 3
@@ -905,7 +988,7 @@ def phase_mutation(rng) -> None:
         check("s2" in {r["sample_name"] for r in port.search(new[:400], 1.0)},
               "%s: the inserted sample is found under colour 2" % name)
         counted = {k: fn.launches for k, fn in fns.items()}
-        own = INDEXES[name][1]
+        own = tuple(k for k in INDEXES[name][1] if k != PRESENCE)  # no scored search here
         check(all(counted[k] > 0 for k in own) and
               not any(n for k, n in counted.items() if k not in own),
               "%s mutation launched its kernels %s and no other: %s" % (name, own, counted))
@@ -1116,15 +1199,41 @@ def queries_in(method: str, args) -> int:
     return len(args[1]) - 1 if method == "counts_batch_kmers" else len(args[0])
 
 
+# a scored search_batch split by the facade's spans: the engine's counts,
+# then per hit query its presence rows (kernel L) and the presence strings
+# with the scorer, inside result building
+SCORED_PARTS = {"counts": "search.batch_counts", "presence": "search.presence",
+                "score": "search.score", "results": "search.batch_results"}
+
+
 def scored_searches(name: str, port, oracles, q: str, seqs) -> dict:
     """A scored search of ``q`` and a scored search_batch of ``seqs`` at
-    0.7 on ``port`` must equal every oracle's: -> {"search_ms", "batch_ms"
-    (host clock), "results": scored results of the batch}."""
+    0.7 on ``port`` must equal every oracle's, kernel L launching once
+    for the search and once per hit query of the batch (on a
+    DeviceEngine; a verified index scores on its classic host engine):
+    -> {"search_ms", "batch_ms" (host clock), "results": scored results
+    of the batch, "launches": L's in the batch, "split": the batch's
+    SCORED_PARTS in ms}."""
+    from bigsi_tpu_torch import metrics
+    from bigsi_tpu_torch.ops import fused_lookup
+
+    device = type(port.engine).__name__ == "DeviceEngine"
+    before = fused_lookup.presence_rows.launches
     t0 = time.perf_counter()
     one = port.search(q, 0.7, score=True)
     t1 = time.perf_counter()
+    single = fused_lookup.presence_rows.launches - before
+    timers = metrics.snapshot()["timers"]
     batch = port.search_batch(seqs, 0.7, score=True)
     t2 = time.perf_counter()
+    after = metrics.snapshot()["timers"]
+    launches = fused_lookup.presence_rows.launches - before - single
+    hits = sum(1 for r in batch if r)
+    check(single == int(device) and launches == hits * int(device),
+          "%s: kernel L launched %d times for the scored search (expected %d) and %d for the "
+          "scored batch's %d hit queries" % (name, single, int(device), launches, hits))
+    split = {part: (after.get(t, {}).get("total_s", 0.0) - timers.get(t, {}).get("total_s", 0.0))
+             * 1e3 for part, t in SCORED_PARTS.items()}
     for oracle in oracles:
         check(one == oracle.search(q, 0.7, score=True),
               "%s scored search equals the host's" % name)
@@ -1133,7 +1242,8 @@ def scored_searches(name: str, port, oracles, q: str, seqs) -> dict:
     results = sum(len(r) for r in batch)
     check(results > 0 and all("kmer-presence" in d for r in batch for d in r),
           "%s: the scored batch has scored results" % name)
-    return {"search_ms": (t1 - t0) * 1e3, "batch_ms": (t2 - t1) * 1e3, "results": results}
+    return {"search_ms": (t1 - t0) * 1e3, "batch_ms": (t2 - t1) * 1e3, "results": results,
+            "launches": launches, "hits": hits, "split": split}
 
 
 def phase_slice(number: int, name: str, gen, rng):
@@ -1302,10 +1412,17 @@ def phase_slice(number: int, name: str, gen, rng):
           "(row-major words %.4f GB, cols %.4f GB)"
           % (number, name, load["s"], load["peak"] / 1e9, load["words"] / 1e9,
              load["cols"] / 1e9), flush=True)
+    split = scored["split"]
     print("phase %d scored %s: search(score=True) of %d bp at 0.7 %.3f ms, search_batch(score="
           "True) of %d queries at 0.7 %.3f ms (host clock), %d scored results; equal to the "
-          "host engine's" % (number, name, QUERY_LEN, scored["search_ms"], B,
-                             scored["batch_ms"], scored["results"]), flush=True)
+          "host engine's; the batch split by the facade's spans: %s %.3f ms, %s %.3f ms "
+          "(kernel L launched %d times; %d hit queries), %s %.3f ms, %s %.3f ms "
+          "(holding the presence and score spans: results alone %.3f ms)"
+          % (number, name, QUERY_LEN, scored["search_ms"], B, scored["batch_ms"],
+             scored["results"], SCORED_PARTS["counts"], split["counts"],
+             SCORED_PARTS["presence"], split["presence"], scored["launches"], scored["hits"],
+             SCORED_PARTS["score"], split["score"], SCORED_PARTS["results"], split["results"],
+             split["results"] - split["presence"] - split["score"]), flush=True)
     if verified:
         print("phase %d verifier %s: rows.bin staged at the first batched verify in %.3f s, "
               "device peak %.4f GB (rows.bin %.4f GB)"
@@ -1803,10 +1920,61 @@ def phase_times(number: int, gpu: str, runs, errors: Errors, rng) -> dict:
         print("phase %d calls %s [%s]: %s" % (number, name, gpu, json.dumps(calls)), flush=True)
         if name == "classic":
             batch_hash_times(number, gpu, seqs, mid, errors)
+    presence_times(number, gpu, runs, errors, kernel_ms)
     print("phase %d memory [%s]: peak %.2f GB allocated on the device"
           % (number, gpu, max(PEAK["bytes"], torch.cuda.max_memory_allocated()) / 1e9),
           flush=True)
     return kernel_ms
+
+
+def presence_args(port, name: str, q: str) -> tuple:
+    """Kernel L's arguments for the facade's distinct k-mers of ``q`` on
+    index ``name``, as its engine's presence_matrix builds them (the
+    verified index: its screen's cols and screen row ids)."""
+    import torch
+
+    from bigsi_tpu_torch.index.device_engine import tile_streams
+    from bigsi_tpu_torch.kmers import seq_to_kmer_matrix, unique_rows_with_inverse
+
+    uniq = unique_rows_with_inverse(seq_to_kmer_matrix(q, K_LEN))[0]
+    if name == VERIFIED:
+        engine, row_idx = port.screen_engine, port.screen_row_idx(uniq)
+    else:
+        engine, row_idx = port.engine, port.kmer_matrix_to_row_idx(uniq)
+    idx = torch.from_numpy(np.ascontiguousarray(row_idx, dtype=np.int32)).to(engine.device)
+    if not engine.tiled:
+        return engine.words, "classic", idx
+    tile, smask = tile_streams(idx, torch.ones(idx.shape[0], dtype=torch.bool,
+                                               device=engine.device), engine.tile_rows)
+    if engine.cols is not None:
+        return engine.cols, "cols", tile, smask
+    return engine.words, "slot", tile, smask, engine.tile_rows
+
+
+def presence_times(number: int, gpu: str, runs, errors: Errors, kernel_ms: dict) -> None:
+    """Kernel L on each index of phases 4-9 (the verified one's screen)
+    at the facade's k-mers of a 542 bp and a 20 kb query (K 512 and about
+    20,000), held to its plain version and timed beside it and its bound
+    (cold L2); the classic index's 542 bp query goes to the kernels line."""
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import lookup as plain
+
+    for name, (port, seqs) in runs.items():
+        for q in (seqs[0], "".join(seqs)[:20_000]):
+            args = presence_args(port, name, q)
+            matrix, source, k = args[0], args[1], args[2].shape[0]
+            k_ms, p_ms = timed_kernel(PRESENCE, lambda *a: (fl.presence_rows(*a),),
+                                      lambda *a: (plain.presence_rows(*a),), args, errors,
+                                      "%s K=%d" % (name, k))
+            moved = bound_bytes(PRESENCE, *args)
+            if name == "classic":  # the first: the 542 bp query
+                record(kernel_ms, PRESENCE, k_ms, p_ms, moved)
+            print("phase %d presence %s [%s]: kernel L (%s source, %s %s) on the facade's %d "
+                  "k-mers of a %d bp query %.4f ms vs plain PyTorch %.4f ms (cold L2); bound "
+                  "%.5f ms by bytes (%.3f MB), %.4f of bound; equal to its plain version"
+                  % (number, name, gpu, source, str(matrix.dtype).replace("torch.", ""),
+                     list(matrix.shape), k, len(q), k_ms, p_ms, bound_ms(moved), moved / 1e6,
+                     bound_ms(moved) / k_ms), flush=True)
 
 
 def phase_probe_ah(number: int, gpu: str, runs, gen, rng) -> None:
@@ -2371,9 +2539,10 @@ MESHES = (
     (VERIFIED, [2, 1, 4]),  # the screen (E); the verify stays on the host
 )
 MESH_KERNELS = ("classic_counts", "grouped_tile_counts", "pack_tile_cols", "cols_counts",
-                "seq_streams")
+                "seq_streams", PRESENCE)
 MESH_DEVICE = "cuda:0"
-MESH_STEP_KERNELS = ("classic_counts", "grouped_tile_counts", "cols_counts", "seq_streams")
+MESH_STEP_KERNELS = ("classic_counts", "grouped_tile_counts", "cols_counts", "seq_streams",
+                     PRESENCE)
 LOAD_SLACK = 256 << 20  # device bytes a mesh load may hold beside its shards (staging)
 
 
@@ -2410,10 +2579,10 @@ def mesh_launches(engine, seq: bool) -> dict:
 
 
 def step_kernel_args(fns, run):
-    """Runs ``run()`` with the mesh steps' kernels recorded: -> (its
-    result, {kernel: (args, keyword args) of its first launch},
-    {kernel: launches})."""
-    from bigsi_tpu_torch.parallel import sharding
+    """Runs ``run()`` with the mesh steps' kernels recorded (as the mesh
+    engine and the fleet's service call them): -> (its result, {kernel:
+    (args, keyword args) of its first launch}, {kernel: launches})."""
+    from bigsi_tpu_torch.parallel import distributed, sharding
 
     first = {}
 
@@ -2424,15 +2593,45 @@ def step_kernel_args(fns, run):
         return call
 
     before = {k: fn.launches for k, fn in fns.items()}
-    for name in MESH_STEP_KERNELS:
-        setattr(sharding, name, spy(name, fns[name]))
+    patched = [(module, name) for module in (sharding, distributed) for name in MESH_STEP_KERNELS
+               if hasattr(module, name)]
+    for module, name in patched:
+        setattr(module, name, spy(name, fns[name]))
     try:
         out = run()
     finally:
-        for name in MESH_STEP_KERNELS:
-            setattr(sharding, name, fns[name])
+        for module, name in patched:
+            setattr(module, name, fns[name])
     return out, first, {k: fn.launches - before[k] for k, fn in fns.items()
                         if fn.launches != before[k]}
+
+
+def presence_shard_checks(fns, run, errors: Errors, case: str) -> int:
+    """Kernel L's every launch in ``run()`` (through the mesh engine or
+    the fleet's service: a scored search, a rank's presence part), on
+    every sample shard and row slab, held to its plain version on the
+    same inputs.  -> the launches checked."""
+    from bigsi_tpu_torch.ops import lookup as plain
+    from bigsi_tpu_torch.parallel import distributed, sharding
+
+    calls = []
+
+    def spy(*args, **kw):
+        out = fns[PRESENCE](*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    for module in (sharding, distributed):
+        module.presence_rows = spy
+    try:
+        run()
+    finally:
+        for module in (sharding, distributed):
+            module.presence_rows = fns[PRESENCE]
+    for i, (args, kw, out) in enumerate(calls):
+        errors.compare(PRESENCE, (out,), (plain.presence_rows(*args, **kw),),
+                       "%s launch %d" % (case, i))
+    return len(calls)
 
 
 def a_exact_checks(words, gen, errors: Errors) -> list:
@@ -2474,8 +2673,9 @@ def shard_row(narrow: dict, kname: str, kernel, reference, args, kw, name, axes,
         moved = bound_bytes(kname, *args, kernel(*args, **kw)[:3])
         shard = "B = %d, L = %d" % tuple(args[0].shape)
     else:  # a sample shard's words or cols
-        moved = bound_bytes(kname, *args)
-        shard = "W_l = %d" % (args[0].shape[1] // (32 if kname == "cols_counts" else 1))
+        moved = bound_bytes(kname, *args, *kw.values())
+        cols = kname == "cols_counts" or (kname == PRESENCE and args[1] == "cols")
+        shard = "W_l = %d" % (args[0].shape[1] // (32 if cols else 1))
     narrow.setdefault(kname, []).append({
         "key": key, "index": name, "mesh": axes, "shard": shard, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms(moved), "mb": moved / 1e6,
@@ -2483,15 +2683,18 @@ def shard_row(narrow: dict, kname: str, kernel, reference, args, kw, name, axes,
 
 
 def time_shards(first: dict, name: str, axes, errors: Errors, narrow: dict) -> None:
-    """A, C, E and H on the inputs of one search_batch's first launches
-    of each, beside their plain versions."""
+    """A, C, E, H and L on the inputs of their first launches in a run
+    (one search_batch, or a scored search and search_batch), beside their
+    plain versions."""
     from bigsi_tpu_torch.ops import lookup as plain
     from bigsi_tpu_torch.ops import prep as plain_prep
 
     plains = {"classic_counts": plain.batched_counts, "grouped_tile_counts": plain.grouped_counts,
-              "cols_counts": plain.grouped_counts_cols, "seq_streams": plain_prep.prep_streams}
+              "cols_counts": plain.grouped_counts_cols, "seq_streams": plain_prep.prep_streams,
+              PRESENCE: lambda *a, **kw: (plain.presence_rows(*a, **kw),)}
+    kernels = dict(kernel_fns(), **{PRESENCE: lambda *a, **kw: (kernel_fns()[PRESENCE](*a, **kw),)})
     for kname, (args, kw) in first.items():
-        shard_row(narrow, kname, kernel_fns()[kname], plains[kname], args, kw, name, axes, errors)
+        shard_row(narrow, kname, kernels[kname], plains[kname], args, kw, name, axes, errors)
 
 
 def pack_shard_checks(words, tile_rows: int, cols: dict, name: str, axes, errors: Errors,
@@ -2606,9 +2809,26 @@ def mesh_handle(number: int, gpu: str, name: str, axes, runs, gen, errors: Error
     for (q, t), w in want_one.items():
         check(port.search(q, t) == w, "%s %s: search of %d bp at %.1f equals the single-device "
               "engine's" % (name, axes, len(q), t))
-    check(port.search(seqs[0], 0.7, score=True) == want_scored[0]
-          and port.search_batch(seqs, 0.7, score=True) == want_scored[1],
+    scored, first, launched = step_kernel_args(fns, lambda: (
+        port.search(seqs[0], 0.7, score=True), port.search_batch(seqs, 0.7, score=True)))
+    check(scored == want_scored,
           "%s %s: scored search and search_batch equal the single-device engine's" % (name, axes))
+    # kernel L once per sample shard (or slab) for the search and for each
+    # hit query of the batch; a verified index scores on its host engine
+    hits = sum(1 for r in scored[1] if r)
+    want_l = 0 if verified else count * (1 + hits)
+    check(launched.get(PRESENCE, 0) == want_l,
+          "%s %s: the scored search and search_batch (%d hit queries) launched kernel L %d "
+          "times (expected %d)" % (name, axes, hits, launched.get(PRESENCE, 0), want_l))
+    with uncounted(fns):  # L on every shard of this mesh, timed on the first
+        time_shards({k: v for k, v in first.items() if k == PRESENCE}, name, axes, errors,
+                    narrow)
+        l_held = presence_shard_checks(fns, lambda: port.search(seqs[0], 0.7, score=True),
+                                       errors, "%s %s scored search" % (name, axes))
+    check(l_held == (0 if verified else count),
+          "%s %s: kernel L held to its plain version on each of the %d shards and slabs (%d)"
+          % (name, axes, count, l_held))
+    del first
     check(packed == chunks, "%s %s: the load launched kernel D %d times, once a chunk of each "
           "cols shard (%d)" % (name, axes, packed, chunks))
     compared = len(want_one) + 1 + len(seqs)
@@ -2630,9 +2850,11 @@ def mesh_handle(number: int, gpu: str, name: str, axes, runs, gen, errors: Error
                  "its column slice" % (shape, packed))
     print("phase %d mesh %s %s [%s]: load %.3f s, device peak %.4f GB (shards %.4f GB: %d x %s); "
           "%d results equal the single-device engine's (search_batch at 1.0 and 0.7, search of "
-          "%d bp and %d bp at 1.0 and 0.7, scored search and search_batch at 0.7); %s"
+          "%d bp and %d bp at 1.0 and 0.7, scored search and search_batch at 0.7, kernel L "
+          "launched %d times for them, each of a scored search's %d launches equal to L's "
+          "plain version); %s"
           % (number, name, axes, gpu, load_s, peak / 1e9, held / 1e9, count, shape, compared,
-             QUERY_LEN, len(q20), "; ".join(lines)), flush=True)
+             QUERY_LEN, len(q20), want_l, l_held, "; ".join(lines)), flush=True)
     del port, engine
     gc.collect()
     check(torch.cuda.memory_allocated() <= held_before,
@@ -2721,7 +2943,7 @@ DIST_MESH = [2, 1, 2]
 DIST_DEVICE = "cuda:0"  # both ranks share the one card, each in its own process and context
 DIST_INDEXES = ("classic", HEADLINE)
 DIST_KERNELS = ("classic_counts", "grouped_tile_counts", "pack_tile_cols", "cols_counts",
-                "seq_streams")
+                "seq_streams", PRESENCE)
 RANK_TIMEOUT = 300  # s, each rank process
 STOP_TIMEOUT = 60  # s, for both ranks to exit after SIGINT to rank 0
 DIST_REPS = 5
@@ -2919,6 +3141,7 @@ def dist_rank(rank: int, port: int, root: Path) -> None:
             return got
 
         svc._part = timed
+        presence = fns[PRESENCE].launches
         if rank:
             _, first, _ = step_kernel_args(fns, svc.run_worker_loop)
         else:
@@ -2927,6 +3150,14 @@ def dist_rank(rank: int, port: int, root: Path) -> None:
                                                                             legs))
             out.update(got)
             svc.stop()
+        # kernel L once per local sample shard (and row slab) a presence op
+        sub = (svc.mesh if row_shards == 1 else svc.rows_mesh).local(rank)
+        per = sub.shape["s"] * sub.shape.get("r", 1)
+        presence = fns[PRESENCE].launches - presence
+        check(presence == per * len(parts["presence"]),
+              "rank %d: %d presence ops launched kernel L %d times, %d each"
+              % (rank, len(parts["presence"]), presence, per))
+        out["presence_r%d" % row_shards] = {"per_op": per, "launches": presence}
         held = sum(nbytes(*p.values()) for p in svc._placed.values())
         out["held_r%d" % row_shards] = held
         out["parts_r%d" % row_shards] = {op: {"first": t[0], "median": sorted(t[-DIST_REPS:])[
@@ -2936,6 +3167,12 @@ def dist_rank(rank: int, port: int, root: Path) -> None:
             if turn == rank:
                 with uncounted(fns):
                     time_shards(first, "%s rank %d" % (HEADLINE, rank), axes, errors, narrow)
+                    pidx = np.load(root / "inputs.npz")["pidx"]
+                    checked = presence_shard_checks(
+                        fns, lambda: svc._presence_part(torch.from_numpy(pidx)), errors,
+                        "%s rank %d %s presence part" % (HEADLINE, rank, axes))
+                    check(checked == per, "rank %d: kernel L held to its plain version on each "
+                          "of its %d shards and slabs (%d)" % (rank, per, checked))
                     if "cols" in svc._placed:
                         view, _ = distributed._local_word_slice(words, svc.flat, rank)
                         chunks += pack_shard_checks(view, svc.tile_rows, svc._placed["cols"],
@@ -2958,6 +3195,7 @@ def dist_rank(rank: int, port: int, root: Path) -> None:
     out["chunks"] = chunks
     print("LAUNCHES " + json.dumps(launched))
     print("RESULT " + json.dumps(out), flush=True)
+    distributed.shutdown()
 
 
 def free_port() -> int:
@@ -3133,10 +3371,13 @@ def service_fleet(number: int, gpu: str, single, seqs, root: Path, fns,
     print("phase %d distributed service [%s]: 2 ranks on %s, mesh %s then %s + 2 row shards, "
           "the minimizer/16 rows.bin mmap; B = %d, K = %d, U = %d, L = %d; every output equal to "
           "the single-device engine's; each rank's placements %s B (row shards: %s B); "
-          "launches rank 0 %s, rank 1 %s; the fleet took %.1f s"
+          "launches rank 0 %s, rank 1 %s (kernel L a presence op on each rank: %s); the fleet "
+          "took %.1f s"
           % (number, gpu, DIST_DEVICE, DIST_MESH, DIST_MESH, b, idx.shape[1], utile.shape[1],
              geom[0].shape[1], res["held_r1"], res["held_r2"], json.dumps(launches[0]),
-             json.dumps(launches[1]), fleet_s), flush=True)
+             json.dumps(launches[1]),
+             json.dumps([{rs: x["presence_" + rs]["per_op"] for rs in ("r1", "r2")}
+                         for x in ranks]), fleet_s), flush=True)
     return total, shards
 
 

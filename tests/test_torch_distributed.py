@@ -244,7 +244,16 @@ RANK_MODES = {"service": _rank_service, "lockstep": _rank_lockstep, "tr64": _ran
 # -- helpers of the tests
 
 
+# what a rank's stderr shows when its port was taken (c10d's store, the
+# HTTP server) or the rendezvous never connected
+PORT_FAULTS = ("Address already in use", "failed to listen", "Connection refused",
+               "client socket has timed out")
+FLEET_STARTS = 3  # a fleet that lost its port starts again, this many times in all
+
+
 def _free_port() -> int:
+    """A port free now; the rank that binds it later may find it taken
+    (see :func:`_port_lost`)."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -271,15 +280,28 @@ def _wait(procs) -> list:
     return outs
 
 
+def _port_lost(outs) -> bool:
+    """True when a rank failed because its port was taken between
+    :func:`_free_port` and its bind (the store's or the HTTP server's),
+    or its rendezvous never connected: a fault of the harness, never of
+    the result."""
+    return any(rc != 0 and any(f in err for f in PORT_FAULTS) for rc, _, err in outs)
+
+
 def _fleet(mode: str, *args, world: int = 2):
     """Runs a fleet of the rank script: -> rank 0's RESULT and every
-    rank's (rc, stdout, stderr), each rank checked to exit 0."""
-    port = _free_port()
-    procs = [subprocess.Popen([sys.executable, __file__, mode, str(r), str(world), str(port),
-                               *map(str, args)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(world)]
-    outs = _wait(procs)
+    rank's (rc, stdout, stderr), each rank checked to exit 0.  A fleet
+    that lost its port (:func:`_port_lost`) starts again on a fresh one,
+    at most FLEET_STARTS times in all."""
+    for start in range(FLEET_STARTS):
+        port = _free_port()
+        procs = [subprocess.Popen([sys.executable, __file__, mode, str(r), str(world), str(port),
+                                   *map(str, args)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(world)]
+        outs = _wait(procs)
+        if not (_port_lost(outs) and start + 1 < FLEET_STARTS):
+            break
     for r, (rc, out, err) in enumerate(outs):
         assert rc == 0 and "PROC_OK" in out, "rank %d failed:\n%s\n%s" % (r, out, err[-3000:])
     line = next(x for x in outs[0][1].splitlines() if x.startswith("RESULT "))
@@ -380,11 +402,10 @@ def _http(base: str, path: str, body: bytes | None = None):
         return json.loads(resp.read().decode())
 
 
-def _serve_fleet(config, drive):
-    """Both ranks on ``serve(config, distributed=True, device="cpu")``,
-    configured through the BIGSI_TPU_* variables; ``drive(base)`` runs
-    against rank 0 once it answers, then SIGINT stops rank 0, which stops
-    rank 1.  -> what ``drive`` returned; both ranks must exit 0."""
+def _start_serve(config):
+    """Both serve ranks on fresh ports: -> (procs, base URL) once rank 0
+    answers, or (None, every rank's (rc, stdout, stderr)) when a rank
+    exited first."""
     coord, http_port = _free_port(), _free_port()
     procs = []
     for r in range(2):
@@ -394,17 +415,46 @@ def _serve_fleet(config, drive):
             [sys.executable, __file__, "serve", str(http_port), json.dumps(config)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
     base = "http://127.0.0.1:%d" % http_port
+    deadline = time.monotonic() + RANK_TIMEOUT
     try:
-        deadline = time.monotonic() + RANK_TIMEOUT
-        while True:
-            assert all(p.poll() is None for p in procs), "a rank exited before serving"
+        while all(p.poll() is None for p in procs):
             try:
                 _http(base, "/")
-                break
+                return procs, base
             except (urllib.error.URLError, ConnectionError):
                 assert time.monotonic() < deadline, "rank 0 never answered"
                 time.sleep(0.2)
-        result = drive(base)
+    except BaseException:
+        _kill(procs)
+        raise
+    return None, _kill(procs)  # one rank exited: the other cannot serve alone
+
+
+def _kill(procs) -> list:
+    """Kills the ranks still running: -> every rank's (rc, stdout, stderr)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    return _wait(procs)
+
+
+def _serve_fleet(config, drive):
+    """Both ranks on ``serve(config, distributed=True, device="cpu")``,
+    configured through the BIGSI_TPU_* variables; ``drive(base)`` runs
+    against rank 0 once it answers, then SIGINT stops rank 0, which stops
+    rank 1.  -> what ``drive`` returned; both ranks must exit 0.  A fleet
+    that lost a port before it served (:func:`_port_lost`) starts again
+    on fresh ones, at most FLEET_STARTS times in all."""
+    for start in range(FLEET_STARTS):
+        procs, got = _start_serve(config)
+        if procs is not None:
+            break
+        if not (_port_lost(got) and start + 1 < FLEET_STARTS):
+            raise AssertionError("a rank exited before serving:\n" + "\n".join(
+                "rank %d rc %s:\n%s\n%s" % (r, rc, out, err[-3000:])
+                for r, (rc, out, err) in enumerate(got)))
+    try:
+        result = drive(got)
     finally:
         if procs[0].poll() is None:
             procs[0].send_signal(signal.SIGINT)
@@ -613,5 +663,11 @@ if __name__ == "__main__":
     if sys.argv[1] == "serve":
         _rank_serve(sys.argv[2:])
     else:
-        RANK_MODES[sys.argv[1]](sys.argv[2:])
+        sys.path.insert(0, ROOT)
+        from bigsi_tpu_torch.parallel import distributed
+
+        try:
+            RANK_MODES[sys.argv[1]](sys.argv[2:])
+        finally:
+            distributed.shutdown()
     assert "jax" not in sys.modules and "bigsi_tpu" not in sys.modules

@@ -318,6 +318,8 @@ ENTRY_POINTS = {
                    "--samples", "40", "--reps", "1"],
     "probe_ij": ["bigsi_tpu_torch.scripts.probe_ij", "--device", "cpu", "--batch", "2000",
                  "--kmers", "5000", "--m", "100000", "--reps", "1"],
+    "probe_presence": ["bigsi_tpu_torch.scripts.probe_presence", "--device", "cpu", "--m",
+                       "20000", "--reps", "1"],
 }
 
 
