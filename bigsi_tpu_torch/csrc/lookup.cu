@@ -39,9 +39,10 @@
 // Kernels F and G, gather_rows and tile_xor, are the probes' kernels,
 // kernel H, seq_streams, is the seq serving arm's prep, kernels I, J
 // and K, kmer_rows, bloom_scatter and bloom_transpose, hash k-mers and
-// build an index on the card, and kernel L, presence_rows, gives
-// scoring's per-k-mer presence rows: each is described at its code
-// below.
+// build an index on the card, and kernel L gives scoring's presence:
+// presence_rows, the per-k-mer presence rows of one query or shard, and
+// presence_strings, a whole scored batch's result strings in one launch.
+// Each is described at its code below.
 //
 // What bounds kernels A, B and C on an H100: gathered bytes, at random
 // rows.  At m = 2.5e7 and W = 32 the matrix is 3.2 GB, far beyond the 50
@@ -2253,6 +2254,130 @@ int launch_presence_cols(const void* cols, int W, const void* tile, const void* 
       static_cast<const int64_t*>(mask), K, t0, t1, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+
+// -- kernel L, strings form -------------------------------------------------
+//
+// presence_strings replaces, for a whole scored batch, the same three XLA
+// programs as presence_rows (bigsi_tpu/index/device_engine.py:
+// _and_rows_fat, _blocked_and, _cols_and) plus the facade's gather of
+// each result's string (bigsi_tpu/graph/bigsi.py:_score_results,
+// X[inverse][:, colour] + 0x30), which the JAX package runs once per hit
+// query.  It writes only what the scorer reads: for result r (query q,
+// sample c) one byte a position j of q, 0x30 + the bit of sample c in
+// the presence row of the k-mer at j, into out[res_off[r] + j].
+//
+// Block (r, b), of `per` blocks a result, takes positions b * 256 +
+// thread, striding by per * 256: each thread reads its position's k-mer
+// (pos_kmer), that k-mer's h row ids, and only the 32-bit word (or cols
+// element) of sample c in each of its rows, one 32-byte sector each,
+// then stores one byte, so a warp's stores are 32 consecutive bytes.
+// The tiled sources take the tile and slot mask from the row ids here:
+// tile = ids[0] / tile_rows, row j = tile * tile_rows + ids[j] %
+// tile_rows (the rows of the 64-bit slot mask, so tile_rows 64 keeps
+// rows 32-63); cols test (cols[tile, c] & g) == g with g the OR of 1 <<
+// (ids[j] % tile_rows), at most the element's bits.
+//
+// What bounds it: bytes, the sectors of the words its results select and
+// its inputs and strings.  A scored batch of 128 hit queries of 512
+// k-mers, a result each, reads 196,608 sectors (6.3 MB) and about 1 MB
+// of ids, about 2 us at 3.35 TB/s; the row form took 128 launches.  Two
+// results of one query in one word read the same sectors again, from L2;
+// nothing is staged in shared memory.  Nothing here is tuned.
+
+constexpr int kStrThreads = 256;
+
+// The inputs of the strings form; see presence_strings_classic.
+struct StringsIn {
+  const int32_t* __restrict__ rows;
+  int h;
+  const int32_t* __restrict__ kmer_off;
+  const int32_t* __restrict__ pos_kmer;
+  const int32_t* __restrict__ pos_off;
+  const int32_t* __restrict__ res_query;
+  const int32_t* __restrict__ res_colour;
+  const int64_t* __restrict__ res_off;
+  int64_t size;
+};
+
+// The bit of sample c in the presence row of the k-mer of row ids ids[0,
+// h), by source.
+struct ClassicBit {
+  const unsigned* __restrict__ words;
+  int W;
+  __device__ __forceinline__ unsigned operator()(const int32_t* ids, int h, int c) const {
+    const unsigned* col = words + (c >> 5);
+    unsigned v = kAllOnes;
+#pragma unroll 4
+    for (int j = 0; j < h; ++j) v &= __ldg(col + static_cast<size_t>(__ldg(ids + j)) * W);
+    return (v >> (c & 31)) & 1u;
+  }
+};
+
+struct SlotBit {
+  const unsigned* __restrict__ words;
+  int W, tile_rows;
+  __device__ __forceinline__ unsigned operator()(const int32_t* ids, int h, int c) const {
+    const int base = __ldg(ids) / tile_rows * tile_rows;
+    const unsigned* col = words + (c >> 5);
+    unsigned v = kAllOnes;
+#pragma unroll 4
+    for (int j = 0; j < h; ++j) {
+      v &= __ldg(col + static_cast<size_t>(base + __ldg(ids + j) % tile_rows) * W);
+    }
+    return (v >> (c & 31)) & 1u;
+  }
+};
+
+template <typename T>
+struct ColsBit {
+  const T* __restrict__ cols;
+  int W, tile_rows;
+  __device__ __forceinline__ unsigned operator()(const int32_t* ids, int h, int c) const {
+    const int tile = __ldg(ids) / tile_rows;
+    unsigned g = 0u;
+    for (int j = 0; j < h; ++j) g |= 1u << (__ldg(ids + j) % tile_rows);
+    const unsigned x = __ldg(cols + static_cast<size_t>(tile) * W * 32 + c);
+    return (x & g) == g ? 1u : 0u;
+  }
+};
+
+// grid (R * per): block x takes result x / per and its positions from
+// (x % per) * 256 on.
+template <typename Bit>
+__global__ void __launch_bounds__(kStrThreads)
+presence_strings_kernel(Bit bit, StringsIn in, int per, uint8_t* __restrict__ out) {
+  const int r = blockIdx.x / per;
+  const int q = __ldg(in.res_query + r);
+  const int c = __ldg(in.res_colour + r);
+  const int p0 = __ldg(in.pos_off + q);
+  const int np = __ldg(in.pos_off + q + 1) - p0;
+  const int32_t* rows = in.rows + static_cast<int64_t>(__ldg(in.kmer_off + q)) * in.h;
+  const int64_t o = __ldg(in.res_off + r);
+  for (int j = (blockIdx.x % per) * kStrThreads + threadIdx.x; j < np;
+       j += per * kStrThreads) {
+    if (o + j >= in.size) break;
+    const int32_t* ids = rows + static_cast<int64_t>(__ldg(in.pos_kmer + p0 + j)) * in.h;
+    out[o + j] = static_cast<uint8_t>(0x30u + bit(ids, in.h, c));
+  }
+}
+
+template <typename Bit>
+int launch_strings(const Bit& bit, const void* rows, int h, const void* kmer_off,
+                   const void* pos_kmer, const void* pos_off, const void* res_query,
+                   const void* res_colour, const void* res_off, int R, int per, int64_t size,
+                   void* out, cudaStream_t stream) {
+  if (R <= 0 || h <= 0 || per < 1 || static_cast<int64_t>(R) * per > 0x7FFFFFFF || size < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const StringsIn in{static_cast<const int32_t*>(rows),      h,
+                     static_cast<const int32_t*>(kmer_off),  static_cast<const int32_t*>(pos_kmer),
+                     static_cast<const int32_t*>(pos_off),   static_cast<const int32_t*>(res_query),
+                     static_cast<const int32_t*>(res_colour),
+                     static_cast<const int64_t*>(res_off),   size};
+  presence_strings_kernel<Bit><<<R * per, kStrThreads, 0, stream>>>(bit, in, per,
+                                                                    static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 }  // namespace
 
 extern "C" {
@@ -2509,6 +2634,60 @@ int presence_rows_cols(const void* cols, int W, int elem_bytes, const void* tile
     case 2: return launch_presence_cols<uint16_t>(cols, W, tile, smask, K, t0, t1, out, s);
     case 4: return launch_presence_cols<uint32_t>(cols, W, tile, smask, K, t0, t1, out, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Kernel L, strings form.  rows int32[sum K, h] (every id in [0, m));
+// kmer_off, pos_off int32[Q + 1]; pos_kmer int32[sum P]; res_query,
+// res_colour int32[R] (colours below W * 32); res_off int64[R + 1]; out
+// uint8[size]: result r's byte of position j at out[res_off[r] + j], none
+// at or past size.  per: blocks a result.
+int presence_strings_classic(const void* words, int W, const void* rows, int h,
+                             const void* kmer_off, const void* pos_kmer, const void* pos_off,
+                             const void* res_query, const void* res_colour, const void* res_off,
+                             int R, int per, int64_t size, void* out, void* stream) {
+  if (W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const ClassicBit bit{static_cast<const unsigned*>(words), W};
+  return launch_strings(bit, rows, h, kmer_off, pos_kmer, pos_off, res_query, res_colour,
+                        res_off, R, per, size, out, static_cast<cudaStream_t>(stream));
+}
+
+// words uint32[T * tile_rows, W], tile_rows in [1, 64].
+int presence_strings_slot(const void* words, int W, int tile_rows, const void* rows, int h,
+                          const void* kmer_off, const void* pos_kmer, const void* pos_off,
+                          const void* res_query, const void* res_colour, const void* res_off,
+                          int R, int per, int64_t size, void* out, void* stream) {
+  if (W <= 0 || tile_rows < 1 || tile_rows > 64) return static_cast<int>(cudaErrorInvalidValue);
+  const SlotBit bit{static_cast<const unsigned*>(words), W, tile_rows};
+  return launch_strings(bit, rows, h, kmer_off, pos_kmer, pos_off, res_query, res_colour,
+                        res_off, R, per, size, out, static_cast<cudaStream_t>(stream));
+}
+
+// cols [T, W * 32] of elem_bytes 1, 2 or 4; tile_rows in [1, 8 * elem_bytes].
+int presence_strings_cols(const void* cols, int W, int elem_bytes, int tile_rows,
+                          const void* rows, int h, const void* kmer_off, const void* pos_kmer,
+                          const void* pos_off, const void* res_query, const void* res_colour,
+                          const void* res_off, int R, int per, int64_t size, void* out,
+                          void* stream) {
+  if (W <= 0 || tile_rows < 1 || tile_rows > 8 * elem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (elem_bytes) {
+    case 1:
+      return launch_strings(ColsBit<uint8_t>{static_cast<const uint8_t*>(cols), W, tile_rows},
+                            rows, h, kmer_off, pos_kmer, pos_off, res_query, res_colour, res_off,
+                            R, per, size, out, s);
+    case 2:
+      return launch_strings(ColsBit<uint16_t>{static_cast<const uint16_t*>(cols), W, tile_rows},
+                            rows, h, kmer_off, pos_kmer, pos_off, res_query, res_colour, res_off,
+                            R, per, size, out, s);
+    case 4:
+      return launch_strings(ColsBit<uint32_t>{static_cast<const uint32_t*>(cols), W, tile_rows},
+                            rows, h, kmer_off, pos_kmer, pos_off, res_query, res_colour, res_off,
+                            R, per, size, out, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

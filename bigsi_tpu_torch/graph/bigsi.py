@@ -69,7 +69,11 @@ from bigsi_tpu_torch.index.device_engine import (
     device_fits,
     resolve_device,
 )
-from bigsi_tpu_torch.index.host_engine import HostEngine, counts_batch_fallback
+from bigsi_tpu_torch.index.host_engine import (
+    HostEngine,
+    counts_batch_fallback,
+    presence_strings_fallback,
+)
 from bigsi_tpu_torch.index.signature import KmerSignatureIndex
 from bigsi_tpu_torch.kmers import (
     ascii_to_strings,
@@ -305,7 +309,7 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
                 packed, num_kmers, min_kmers, side_pres
             )
         if score:
-            self._score_results(packed, inverse, results, side_pres)
+            self._score([row_idx], [inverse], [results], [packed], [side_pres])
         return [
             r.todict()
             for r in results
@@ -325,9 +329,9 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         The exact filter needs no separate AND pass: a sample matches
         exactly iff its hit count equals the distinct-kmer count.
         Scoring (``score=True``) runs the batched counts dispatch first,
-        then fetches per-kmer presence rows ONLY for queries with hits
-        and builds every hit's presence string in one vectorized pass
-        (the reference scores per result with per-char string joins,
+        then asks the engine for the presence strings of every hit
+        query's results in one call (one kernel launch on the card; the
+        reference scores per result with per-char string joins,
         ``bigsi.py:232-239``).
         """
         assert threshold <= 1
@@ -673,10 +677,10 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         # into k-mer prep, engine counts and results; a scored batch's
         # results hold its "search.presence" and "search.score" spans
         with phase("search.batch_results"):
-            out = []
+            found = []
             for i, (row_idx, num_kmers) in enumerate(per_query):
                 if num_kmers == 0:
-                    out.append([])
+                    found.append([])
                     continue
                 min_kmers = math.ceil(num_kmers * threshold)
                 keep = np.flatnonzero(counts[i] >= min_kmers)
@@ -691,26 +695,29 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
                 ]
                 if threshold != 1.0:
                     results.sort(key=lambda x: x.num_kmers_found, reverse=True)
-                if score_info is not None and results:
-                    # scoring pass ONLY over hit queries: fetch per-kmer
-                    # presence rows once per query, build every hit's
-                    # presence string vectorized (VERDICT r2 item 5 —
-                    # replaces the serial per-query fallback)
-                    uniq, inverse = score_info[i]
-                    if row_idx is None:
-                        row_idx = self.kmer_matrix_to_row_idx(uniq)
-                    packed = self.engine.and_rows(row_idx)
-                    self._score_results(
-                        packed, inverse, results, self.side_presence(row_idx)
-                    )
-                out.append(
-                    [
-                        r.todict()
-                        for r in results
-                        if not r.sample_name == DELETION_SPECIAL_SAMPLE_NAME
-                    ]
-                )
-            return out
+                found.append(results)
+            hits = [i for i, results in enumerate(found) if results]
+            if score_info is not None and hits:
+                # scoring pass ONLY over hit queries, all of them in one
+                # engine call.  The k-mer path hashed no rows: hash each
+                # hit query's k-mers, one call a query (one call over the
+                # whole batch measured slower: the hashing's numpy
+                # temporaries then outgrow the cache)
+                rows = [
+                    self.kmer_matrix_to_row_idx(score_info[i][0])
+                    if per_query[i][0] is None
+                    else per_query[i][0]
+                    for i in hits
+                ]
+                self._score(rows, [score_info[i][1] for i in hits], [found[i] for i in hits])
+            return [
+                [
+                    r.todict()
+                    for r in results
+                    if not r.sample_name == DELETION_SPECIAL_SAMPLE_NAME
+                ]
+                for results in found
+            ]
 
     def _counts_batch(self, idx, mask):
         engine = self.engine
@@ -762,25 +769,47 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         results.sort(key=lambda x: x.num_kmers_found, reverse=True)
         return results
 
-    def _score_results(self, packed, inverse, results, side_pres=None):
-        # Presence matrix over ALL query positions (duplicates included),
-        # matching ``bigsi.py:232-239`` which stacks one row per k-mer of
-        # the sliding window.  Presence strings are built in one
-        # vectorized pass (bits + 0x30 -> ASCII), not per-char joins.
-        # search.presence times the engine's presence rows (kernel L on the
-        # card), search.score the strings and the scorer.
+    def _score(self, row_idx_list, inverse_list, results_list, packed_list=None,
+               side_list=None):
+        # Each query's presence strings over ALL its positions (duplicates
+        # included: ``inverse``), matching ``bigsi.py:232-239``, which
+        # stacks one row per k-mer of the sliding window; then the scorer.
+        # A caller that has each query's AND-ed rows and staged presence
+        # (a single search) passes them, so neither is gathered again.
+        # search.presence times the engine's strings of every main-matrix
+        # colour, for all the queries in one call (kernel L's strings form
+        # on the card), search.score the staged colours' strings (the side
+        # shard, on the host) and the scorer.
+        n = self.bitmatrix.num_cols
+        engine = self.engine
         with phase("search.presence"):
-            X = self.engine.presence_matrix(packed, self.bitmatrix.num_cols)
+            colours = [[r.colour for r in res if r.colour < n] for res in results_list]
+            if hasattr(engine, "presence_strings"):
+                strings = engine.presence_strings(row_idx_list, inverse_list, colours, n)
+            else:
+                strings = presence_strings_fallback(
+                    engine, row_idx_list, inverse_list, colours, n, packed_list
+                )
         with phase("search.score"):
-            if side_pres is not None:
-                X = np.concatenate([X, side_pres.astype(X.dtype)], axis=1)
-            X = X[inverse]
-            chars = X.astype(np.uint8) + np.uint8(0x30)
-            for res in results:
-                col = chars[:, res.colour].tobytes().decode("ascii")
-                score_results = self.scorer.score(col)
-                score_results["kmer-presence"] = col
-                res.add_score(score_results)
+            for i, (row_idx, inverse, results, main) in enumerate(
+                zip(row_idx_list, inverse_list, results_list, strings)
+            ):
+                main, side = iter(main), None
+                for res in results:
+                    if res.colour < n:
+                        col = next(main)
+                    else:
+                        if side is None:
+                            side = (
+                                self.side_presence(row_idx)
+                                if side_list is None
+                                else side_list[i]
+                            )
+                            side = side[inverse].astype(np.uint8) + np.uint8(0x30)
+                        col = side[:, res.colour - n].tobytes().decode("ascii")
+                    score_results = self.scorer.score(col)
+                    score_results["kmer-presence"] = col
+                    res.add_score(score_results)
 
     # -- mutation -----------------------------------------------------
 

@@ -35,8 +35,10 @@ host paths.  On a cols engine with slot scheme 2 or 3 and the native
 library, ``counts_batch_kmers`` serves the other batches straight from
 ASCII k-mers: the threaded native prep builds the grouped
 streams, the next chunk's prep overlapping the current chunk's kernel.
-A single query reduces through its layout's kernel as a batch of one;
-scoring's presence rows come from the plain ops.  A verified index's
+A single query reduces through its layout's kernel as a batch of one.
+Scoring's presence strings come from kernel L's strings form
+(``presence_strings``), one launch a scored search or batch; kernel L's
+row form serves ``presence_matrix``.  A verified index's
 verify runs on :class:`DeviceVerifier` (kernel A over
 ``rows.bin``, only the candidates' counts sent back).  PyTorch compiles
 nothing per shape, so no bucketing of K is needed; the seq arm keeps
@@ -69,6 +71,7 @@ from bigsi_tpu_torch.ops.fused_lookup import (
     grouped_tile_counts,
     pack_tile_cols,
     presence_rows,
+    presence_strings,
     seq_streams,
     tile_counts,
 )
@@ -246,13 +249,8 @@ def tile_streams(row_idx: torch.Tensor, mask: torch.Tensor, tile_rows: int):
     of the tile, and masked-out k-mers get tile 0 and mask 0.  The masks
     are 64 bits wide, so tile_rows 64 keeps rows 32-63 (the JAX engine's
     uint32 masks drop them)."""
-    idx = row_idx.long()
-    tile = torch.where(mask, idx[..., 0] // tile_rows, 0).to(torch.int32)
-    bits = torch.ones_like(idx) << (idx % tile_rows)
-    smask = bits[..., 0]
-    for j in range(1, bits.shape[-1]):
-        smask = smask | bits[..., j]
-    return tile, torch.where(mask, smask, 0)
+    tile, smask = plain.slot_streams(row_idx, tile_rows)
+    return torch.where(mask, tile, 0), torch.where(mask, smask, 0)
 
 
 def kmer_streams_to_device(prep, device):
@@ -391,6 +389,66 @@ class DeviceEngine:
         host = rows.cpu().numpy().view(np.uint32)
         bits = np.unpackbits(host.view(np.uint8), axis=-1, bitorder="little")
         return bits[:, :num_cols]
+
+    def presence_strings(self, row_idx_list, inverse_list, colour_lists, num_cols: int) -> list:
+        """Scoring's presence strings of Q queries in one launch of kernel
+        L's strings form: query i's distinct k-mers' row ids int[K_i, h],
+        the distinct k-mer of each of its positions ``inverse_list[i]``
+        int[P_i] and its result colours ``colour_lists[i]`` (each below
+        ``num_cols``) -> per query a list of str, one a colour in the
+        given order, of P_i characters "0" or "1".  The ids, positions and
+        results cross in one int32 buffer (pinned on CUDA), the strings
+        come back in one copy; a batch with no colour touches nothing."""
+        colours = [np.asarray(c, dtype=np.int64).reshape(-1) for c in colour_lists]
+        nres = np.array([c.size for c in colours], dtype=np.int64)
+        r = int(nres.sum())
+        if r == 0:
+            return [[] for _ in colours]
+        q = len(colours)
+        cs = np.concatenate(colours)
+        if cs.min() < 0 or cs.max() >= min(num_cols, self.matrix.num_words * 32):
+            raise IndexError("colours must lie in [0, %d)" % num_cols)
+        rows = np.concatenate(row_idx_list)  # [sum K, h]
+        self._check_rows(rows)
+        ps = np.array([np.size(x) for x in inverse_list], dtype=np.int64)
+        res_query = np.repeat(np.arange(q), nres)
+        lens = ps[res_query]
+        # rows, kmer_off, pos_kmer, pos_off, res_query, res_colour; then
+        # res_off, int64 at an even int32 offset
+        starts = np.cumsum([0, rows.size, q + 1, ps.sum(), q + 1, r, r])
+        at = int(starts[-1]) + int(starts[-1]) % 2
+        cuda = self.device.type == "cuda"
+        buf = torch.empty(at + 2 * (r + 1), dtype=torch.int32, pin_memory=cuda)
+        host = buf.numpy()
+        for i, values in enumerate((
+                rows.reshape(-1), np.cumsum([0] + [x.shape[0] for x in row_idx_list]),
+                np.concatenate(inverse_list), np.cumsum(np.concatenate([[0], ps])), res_query,
+                cs)):
+            host[starts[i]:starts[i + 1]] = values
+        res_off = host[at:].view(np.int64)
+        res_off[0] = 0
+        np.cumsum(lens, out=res_off[1:])
+        offs = res_off.tolist()
+        dev = buf.to(self.device, non_blocking=True)
+        ins = [dev[starts[i]:starts[i + 1]] for i in range(6)]
+        ins[0] = ins[0].view(-1, rows.shape[1])
+        if not self.tiled:
+            matrix, source = self.words, "classic"
+        elif self.cols is not None:
+            matrix, source = self.cols, "cols"
+        else:
+            matrix, source = self.words, "slot"
+        out = torch.empty(offs[-1], dtype=torch.uint8, device=self.device)
+        presence_strings(matrix, source, *ins, self.tile_rows,
+                         res_off=dev[at:].view(torch.int64), out=out)
+        back = torch.empty(offs[-1], dtype=torch.uint8, pin_memory=cuda)
+        back.copy_(out)
+        text = back.numpy().tobytes().decode("ascii")
+        strings, i = [], 0
+        for n in nres.tolist():
+            strings.append([text[offs[j]:offs[j + 1]] for j in range(i, i + n)])
+            i += n
+        return strings
 
     # -- batched search (the serving path of search_batch / bulk_search)
 

@@ -76,3 +76,24 @@ def counts_batch_fallback(engine, row_idx, mask, num_cols) -> np.ndarray:
         packed = engine.and_rows(row_idx[i][valid])
         out[i] = engine.counts(packed, num_cols)
     return out
+
+
+def presence_strings_fallback(engine, row_idx_list, inverse_list, colour_lists,
+                              num_cols, packed_list=None) -> list:
+    """Per-query presence strings over any engine's (and_rows,
+    presence_matrix) surface: the contract of ``DeviceEngine.
+    presence_strings`` for engines without a batched one.  ``packed_list``,
+    where the caller has them, are each query's AND-ed rows, which are
+    then not gathered again."""
+    out = []
+    for i, (row_idx, inverse, colours) in enumerate(
+            zip(row_idx_list, inverse_list, colour_lists)):
+        colours = np.asarray(colours, dtype=np.int64)
+        if colours.size == 0:
+            out.append([])
+            continue
+        packed = engine.and_rows(row_idx) if packed_list is None else packed_list[i]
+        x = engine.presence_matrix(packed, num_cols)
+        chars = np.ascontiguousarray(x[inverse][:, colours].T, dtype=np.uint8) + np.uint8(0x30)
+        out.append([c.tobytes().decode("ascii") for c in chars])
+    return out

@@ -46,6 +46,10 @@
   scoring's presence rows, ``bigsi_tpu/index/device_engine.py:_and_rows_fat``
   (classic), ``:_blocked_and`` (slot) and ``:_cols_and`` (cols), each as
   one launch.
+* :func:`presence_strings` is kernel L's strings form: the same three
+  programs plus the facade's gather of each result's presence string
+  (``bigsi_tpu/graph/bigsi.py:_score_results``), for a whole scored
+  batch in one launch that writes only the result columns' strings.
 
 A wrapper checks its arguments, then runs the plain version from
 :mod:`bigsi_tpu_torch.ops.lookup` (kernel H's from
@@ -104,11 +108,18 @@ def _library() -> ctypes.CDLL:
     lib.presence_rows_classic.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr]
     lib.presence_rows_slot.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
     lib.presence_rows_cols.argtypes = [ptr, i32, i32, ptr, ptr, i32, i32, i32, ptr, ptr]
+    # rows, h, kmer_off, pos_kmer, pos_off, res_query, res_colour, res_off,
+    # R, blocks per result, size, out, stream
+    strings = [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i64, ptr, ptr]
+    lib.presence_strings_classic.argtypes = [ptr, i32] + strings
+    lib.presence_strings_slot.argtypes = [ptr, i32, i32] + strings
+    lib.presence_strings_cols.argtypes = [ptr, i32, i32, i32] + strings
     for fn in (lib.classic_counts, lib.tile_counts, lib.grouped_tile_counts,
                lib.pack_tile_cols, lib.cols_counts, lib.tile_counts_only,
                lib.gather_rows, lib.tile_xor, lib.seq_streams, lib.kmer_rows,
                lib.bloom_scatter, lib.bloom_transpose, lib.presence_rows_classic,
-               lib.presence_rows_slot, lib.presence_rows_cols):
+               lib.presence_rows_slot, lib.presence_rows_cols, lib.presence_strings_classic,
+               lib.presence_strings_slot, lib.presence_strings_cols):
         fn.restype = i32
     lib.lookup_error_string.argtypes = [i32]
     lib.lookup_error_string.restype = ctypes.c_char_p
@@ -635,3 +646,91 @@ def presence_rows(matrix: torch.Tensor, source: str, idx: torch.Tensor,
 
 
 presence_rows.launches = 0
+
+
+STRING_THREADS = 256  # positions a block of the strings form takes at a time
+MAX_GRID = 2**31 - 1
+
+
+def presence_strings(matrix: torch.Tensor, source: str, rows: torch.Tensor,
+                     kmer_off: torch.Tensor, pos_kmer: torch.Tensor, pos_off: torch.Tensor,
+                     res_query: torch.Tensor, res_colour: torch.Tensor, tile_rows: int = 1, *,
+                     res_off: torch.Tensor, out: torch.Tensor):
+    """Kernel L, strings form: the presence strings of a batch's results
+    in one launch -> (uint8[S], res_off int64[R + 1]); the contract of
+    :func:`bigsi_tpu_torch.ops.lookup.presence_strings`.
+
+    ``matrix`` as for :func:`presence_rows` ("classic": int32[m, W];
+    "slot": int32[T * tile_rows, W], tile_rows 1..64; "cols": cols[T, W *
+    32] with tile_rows up to the element's bits).  ``rows`` int32[sum K,
+    h] (every id in [0, m)), ``kmer_off`` and ``pos_off`` int32[Q + 1],
+    ``pos_kmer`` int32[sum P], ``res_query`` and ``res_colour`` int32[R]
+    (colours below W * 32), in any order.  ``res_off`` int64[R + 1] and
+    ``out`` uint8[res_off[R]] are the caller's offsets
+    (:func:`bigsi_tpu_torch.ops.lookup.string_offsets`) and output, so the
+    wrapper reads nothing back from the card; the kernel writes no byte
+    past ``out``'s end.
+    """
+    if source not in plain.PRESENCE_SOURCES:
+        raise ValueError("source must be one of %s, got %r" % (plain.PRESENCE_SOURCES, source))
+    if not isinstance(matrix, torch.Tensor) or matrix.dim() != 2:
+        raise ValueError("the matrix must be a 2-d tensor")
+    dev = matrix.device
+    if source == "cols":
+        if matrix.dtype not in COLS_DTYPES or matrix.shape[1] % 32:
+            raise TypeError("cols must be uint8, int16 or int32 with a multiple of 32 columns")
+        w, widest = matrix.shape[1] // 32, 8 * matrix.element_size()
+    else:
+        w, widest = matrix.shape[1], MAX_TILE_ROWS
+    check_tensor("matrix", matrix, matrix.dtype if source == "cols" else torch.int32,
+                 matrix.shape, dev)
+    if source != "classic" and not (1 <= tile_rows <= widest
+                                    and (source == "cols" or matrix.shape[0] % tile_rows == 0)):
+        raise ValueError("tile_rows must be in [1, %d] and divide the matrix's rows, got %d"
+                         % (widest, tile_rows))
+    if not isinstance(rows, torch.Tensor) or rows.dim() != 2 or rows.shape[1] < 1:
+        raise ValueError("rows must be row ids [sum K, h] with h >= 1")
+    for name, t in (("kmer_off", kmer_off), ("pos_kmer", pos_kmer), ("pos_off", pos_off),
+                    ("res_query", res_query)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 1:
+            raise ValueError("%s must be a 1-d tensor" % name)
+    q, r = kmer_off.shape[0] - 1, res_query.shape[0]
+    if q < 0:
+        raise ValueError("kmer_off must hold Q + 1 offsets")
+    check_tensor("rows", rows, torch.int32, rows.shape, dev)
+    check_tensor("kmer_off", kmer_off, torch.int32, (q + 1,), dev)
+    check_tensor("pos_kmer", pos_kmer, torch.int32, pos_kmer.shape, dev)
+    check_tensor("pos_off", pos_off, torch.int32, (q + 1,), dev)
+    check_tensor("res_query", res_query, torch.int32, (r,), dev)
+    check_tensor("res_colour", res_colour, torch.int32, (r,), dev)
+    check_tensor("res_off", res_off, torch.int64, (r + 1,), dev)
+    if not isinstance(out, torch.Tensor) or out.dim() != 1:
+        raise ValueError("out must be a 1-d tensor")
+    check_tensor("out", out, torch.uint8, out.shape, dev)
+    if device_kind(matrix) == "cpu":
+        got, offsets = plain.presence_strings(matrix, source, rows, kmer_off, pos_kmer, pos_off,
+                                              res_query, res_colour, tile_rows)
+        if not torch.equal(res_off, offsets) or out.shape != got.shape:
+            raise ValueError("res_off and out do not match the queries' positions")
+        out.copy_(got)
+        return out, res_off
+    if r == 0 or out.numel() == 0:
+        return out, res_off
+    # blocks a result: enough for the batch's mean query, each block's
+    # threads striding over longer ones
+    per = -(-pos_kmer.shape[0] // (max(1, q) * STRING_THREADS))
+    per = max(1, min(per, MAX_GRID // r))
+    tail = (rows.data_ptr(), rows.shape[1], kmer_off.data_ptr(), pos_kmer.data_ptr(),
+            pos_off.data_ptr(), res_query.data_ptr(), res_colour.data_ptr(), res_off.data_ptr(),
+            r, per, out.numel())
+    if source == "classic":
+        head = (matrix.data_ptr(), w)
+    elif source == "slot":
+        head = (matrix.data_ptr(), w, tile_rows)
+    else:
+        head = (matrix.data_ptr(), w, matrix.element_size(), tile_rows)
+    launch(presence_strings, dev, head + tail, (out,), "presence_strings_" + source)
+    return out, res_off
+
+
+presence_strings.launches = 0

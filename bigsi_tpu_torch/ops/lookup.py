@@ -8,7 +8,8 @@ Counterparts of ``bigsi_tpu/ops/lookup.py`` (``and_rows_jnp``,
 re-stated here because that module imports jax, with
 ``make_full_query_step`` (kernels I and A on the card),
 ``presence_rows`` (the three presence programs behind one call, with a
-tile window for row slabs), and the plain versions
+tile window for row slabs), ``presence_strings`` (the facade's scored
+presence strings of a whole batch, from its row ids), and the plain versions
 of the probes' kernels (``gather_rows``, ``tile_xor``, and
 ``blocked_counts`` without exact); ``field_hits`` and
 ``grouped_counts_cols_live`` restate kernel E's own arithmetic (its
@@ -332,6 +333,61 @@ def presence_rows(matrix, source: str, idx, smask=None, tile_rows: int = 1, wind
     else:
         rows = cols_presence(matrix, local, smask)
     return torch.where(here[:, None], rows, 0)
+
+
+def slot_streams(rows, tile_rows: int):
+    """Row ids int[..., h] of a tiled layout -> (tile int32[...], slot
+    mask int64[...]): the tile of the first row, and bit ``rows[..., j] %
+    tile_rows`` set for each j.  The masks are 64 bits wide, so tile_rows
+    64 keeps rows 32-63."""
+    idx = rows.long()
+    tile = (idx[..., 0] // tile_rows).to(torch.int32)
+    bits = torch.ones_like(idx) << (idx % tile_rows)
+    smask = bits[..., 0]
+    for j in range(1, bits.shape[-1]):
+        smask = smask | bits[..., j]
+    return tile, smask
+
+
+def string_offsets(pos_off, res_query) -> torch.Tensor:
+    """Where each result's presence string starts: -> int64[R + 1], result
+    r's string of P bytes (P the positions of query ``res_query[r]``) at
+    ``[res_off[r], res_off[r + 1])``."""
+    lens = (pos_off[1:] - pos_off[:-1]).long()[res_query.long()]
+    res_off = torch.zeros(lens.shape[0] + 1, dtype=torch.int64, device=lens.device)
+    torch.cumsum(lens, 0, out=res_off[1:])
+    return res_off
+
+
+def presence_strings(matrix, source: str, rows, kmer_off, pos_kmer, pos_off, res_query,
+                     res_colour, tile_rows: int = 1):
+    """Scoring's presence strings of a batch (plain kernel L, strings
+    form) -> (uint8[S], res_off int64[R + 1]).
+
+    Q queries: ``rows`` int[sum K, h] holds every query's distinct k-mers'
+    row ids, query q's from ``kmer_off[q]``; ``pos_kmer`` int[sum P] each
+    query position's distinct k-mer (local to its query, duplicates
+    included), query q's from ``pos_off[q]``.  Result r is sample
+    ``res_colour[r]`` of query ``res_query[r]``: its string
+    ``out[res_off[r]:res_off[r + 1]]`` holds one byte a position of its
+    query, ``0x30 + bit``, the bit set iff the sample holds that
+    position's k-mer.  ``source`` as for :func:`presence_rows`, the tiled
+    sources taking each k-mer's tile and slot mask from its row ids
+    (:func:`slot_streams` at ``tile_rows``)."""
+    if source == "classic":
+        pres = presence_rows(matrix, source, rows)
+    else:
+        tile, smask = slot_streams(rows, tile_rows)
+        pres = presence_rows(matrix, source, tile, smask, tile_rows)
+    res_off = string_offsets(pos_off, res_query)
+    lens = res_off[1:] - res_off[:-1]
+    res = torch.repeat_interleave(torch.arange(lens.shape[0], device=lens.device), lens)
+    q = res_query.long()[res]
+    j = torch.arange(res.shape[0], device=lens.device) - res_off[res]  # position in its query
+    kmer = kmer_off.long()[q] + pos_kmer.long()[pos_off.long()[q] + j]
+    c = res_colour.long()[res]
+    bit = (pres[kmer, c >> 5].long() >> (c & 31)) & 1
+    return (bit + 0x30).to(torch.uint8), res_off
 
 
 def grouped_counts_cols(cols, utile, gmask, n_valid):

@@ -43,7 +43,13 @@ k-mers each), the shape of bench.py.  Phases:
    at W 1, 33 and 64, K 1, 37 and 300, classic h 1, 3 and 8, slot at
    tile_rows 8 to 64 and cols of uint8, int16 and int32, masks of 0, of
    many rows and of rows 32-63, each tiled case whole and as two row
-   slabs with their tile windows; and a mutation check:
+   slabs with their tile windows; kernel L's strings form
+   (presence_strings) at W 1, 33 and 64, Q 1, 7 and 256 queries of up to
+   K 1, 37 and 300 distinct k-mers, with duplicate positions, results in
+   any order and in the last word beside phantom samples, on each source
+   (classic h 1, 3 and 8; slot at tile_rows 8 to 64 with slots in rows
+   32-63; cols of uint8, int16 and int32) and one 20 kb query, each
+   given the plain version's offsets; and a mutation check:
    small blocked/32 and
    minimizer/64 indexes on the card, merged and then overwritten in one
    colour, give the host engine's results on a rebuilt engine;
@@ -68,9 +74,10 @@ k-mers each), the shape of bench.py.  Phases:
    Each runs a single search, a scored search and a scored search_batch
    of the 256 queries at 0.7 (their times printed, the batch split by
    the facade's spans search.batch_counts, search.presence, search.score
-   and search.batch_results; kernel L must launch once for the search
-   and once per hit query of the batch, on the verified index, which
-   scores on its classic host engine, never), a bulk_search of a
+   and search.batch_results; kernel L's strings form must launch once
+   for the search and once for the batch, its row form never; on the
+   verified index, which scores on its classic host engine, neither), a
+   bulk_search of a
    256-record FASTA through the port's CLI at thresholds 1.0 and 0.7,
    and 3 GET, 1 POST
    and a burst of 8 concurrent GETs (coalesced by the server's batcher)
@@ -122,6 +129,11 @@ k-mers each), the shape of bench.py.  Phases:
    clock; kernel L on every index (the verified one's screen) at the
    facade's k-mers of a 542 bp and a 20 kb query (K 512 and about
    20,000), held to its plain version and timed beside it and its bound;
+   and kernel L's strings form on each index's own scored batch (the
+   arguments its engine passed in a scored search_batch at 0.7), held to
+   its plain version and timed beside it, its bound and the row form's
+   launches over the same hit queries (each alone, summed, and back to
+   back);
 11. probes: the three probe entry points of bigsi_tpu_torch.scripts
    (probe_multidma, bisect, microbench) run in-process over the
    blocked/32 index's resident words (tile_rows 32: 4 KB tiles; S2 views
@@ -235,7 +247,9 @@ k-mers each), the shape of bench.py.  Phases:
 
 Then a check that no module of bigsi_tpu or jax was loaded, one JSON
 line of the kernels (each with its launches on the main path, phase 13's
-included, its time, its plain version's, the least time its bytes allow
+included, and for kernel L's row form, which serves only the meshes and
+the fleets since the strings form took the single device's scoring,
+phase 13's; its time, its plain version's, the least time its bytes allow
 on an H100 (3.35 TB/s) for this run's inputs, the one-call PyTorch
 yardstick where there is one, for A, C, E and L their times on the mesh
 shards, and the launches of phase 14's service ranks summed as
@@ -282,7 +296,7 @@ DEVICE = "cuda"
 HEADLINE_R, HEADLINE_RUN = 20, 10
 DEFAULT_R, DEFAULT_RUN = 6, 6
 SOURCE = "bigsi_tpu_torch/csrc/lookup.cu"
-# the twelve kernels: (name, TPU kernels or XLA program it replaces)
+# the kernels, L in both its forms: (name, TPU kernels or XLA program it replaces)
 KERNELS = (
     ("classic_counts", "bigsi_tpu/index/device_engine.py:89"),
     ("tile_counts", "bigsi_tpu/ops/pallas_lookup.py:203, scripts/bisect_kernel.py:49"),
@@ -299,18 +313,21 @@ KERNELS = (
     ("bloom_scatter", "bigsi_tpu/ops/build_jax.py:41"),
     ("bloom_transpose", "bigsi_tpu/ops/build_jax.py:78"),
     ("presence_rows", "bigsi_tpu/index/device_engine.py:79, :151, :158"),
+    ("presence_strings",
+     "bigsi_tpu/index/device_engine.py:79, :151, :158; bigsi_tpu/graph/bigsi.py:713-726"),
 )
 COLS_KERNELS = ("pack_tile_cols", "cols_counts", "seq_streams")
-PRESENCE = "presence_rows"  # kernel L: every scored search on a DeviceEngine
+PRESENCE = "presence_rows"  # kernel L's row form: a mesh's and a fleet's scored presence
+STRINGS = "presence_strings"  # kernel L's strings form: every scored search on a DeviceEngine
 # the indexes of phases 4-9: name -> (config entries, kernels of its path)
 INDEXES = {
-    "classic": ({"layout": "classic"}, ("classic_counts", PRESENCE)),
-    "blocked/32": ({"layout": "blocked", "tile-rows": 32}, ("tile_counts", PRESENCE)),
+    "classic": ({"layout": "classic"}, ("classic_counts", STRINGS)),
+    "blocked/32": ({"layout": "blocked", "tile-rows": 32}, ("tile_counts", STRINGS)),
     "minimizer/16": ({"layout": "minimizer", "tile-rows": 16, "minimizer-window": 19},
-                     COLS_KERNELS + (PRESENCE,)),
-    "minimizer/32": ({"layout": "minimizer", "tile-rows": 32}, COLS_KERNELS + (PRESENCE,)),
+                     COLS_KERNELS + (STRINGS,)),
+    "minimizer/32": ({"layout": "minimizer", "tile-rows": 32}, COLS_KERNELS + (STRINGS,)),
     "minimizer/64": ({"layout": "minimizer", "tile-rows": 64},
-                     ("grouped_tile_counts", PRESENCE)),
+                     ("grouped_tile_counts", STRINGS)),
     # rows.bin classic, screen.bin minimizer/16 w = 19 (the screen's
     # defaults); its scored searches run on the classic host engine
     "verified": ({"layout": "classic", "screen": "minimizer"},
@@ -419,7 +436,44 @@ def bound_bytes(name: str, *args) -> int:
         from bigsi_tpu_torch.scripts.probe_presence import presence_bytes
 
         return presence_bytes(*args)
+    if name == STRINGS:
+        return strings_bytes(*args)
     raise ValueError(name)
+
+
+SECTOR = 32  # bytes: the least the card's memory moves for one random word
+
+
+def strings_bytes(matrix, source, rows, kmer_off, pos_kmer, pos_off, res_query, res_colour,
+                  tile_rows=1) -> int:
+    """The bytes kernel L's strings form must move: one 32-byte sector for
+    each distinct (row, word of a result's sample) that a result's query's
+    k-mers select (on the cols source the sector of each distinct (tile,
+    sample) element), its inputs read once (the offsets int64[R + 1]
+    among them) and its strings written once.  Distinct, because a
+    minimizer query's k-mers share tiles and results may share words."""
+    import torch
+
+    from bigsi_tpu_torch.ops import lookup as plain
+
+    q = res_query.long()
+    first = kmer_off.long()[q]
+    ks = kmer_off.long()[q + 1] - first
+    res = torch.repeat_interleave(torch.arange(q.shape[0], device=q.device), ks)
+    start = torch.cumsum(ks, 0) - ks
+    kmer = first[res] + torch.arange(res.shape[0], device=q.device) - start[res]
+    c = res_colour.long()[res]
+    ids = rows.long()[kmer]  # [(result, k-mer) pairs, h]
+    if source == "cols":
+        at = (ids[:, 0] // tile_rows * matrix.shape[1] + c) * matrix.element_size()
+    else:
+        if source == "slot":
+            ids = ids[:, :1] // tile_rows * tile_rows + ids % tile_rows
+        at = (ids * matrix.shape[1] + (c >> 5)[:, None]) * 4
+    sectors = int(torch.unique(at // SECTOR).numel())
+    size = int(plain.string_offsets(pos_off, res_query)[-1])
+    return (sectors * SECTOR + nbytes(rows, kmer_off, pos_kmer, pos_off, res_query, res_colour)
+            + (q.shape[0] + 1) * 8 + size)
 
 
 def bound_ms(nbytes_moved: int) -> float:
@@ -677,8 +731,10 @@ def phase_kernels(gen, errors: Errors) -> None:
                     cases += 1
     cases += pack_checks(gen, errors)
     cases += presence_checks(gen, errors)
+    cases += strings_checks(np.random.default_rng(int(torch.randint(
+        0, 2**31, (1,), generator=gen, device=DEVICE))), errors)
     torch.cuda.synchronize()
-    print("phase 3 kernels: kernels A-E and L bit-exact with their plain versions in %d "
+    print("phase 3 kernels: kernels A-E and L (both forms) bit-exact with their plain versions in %d "
           "cases (slice shapes W=%d m=%d B=%d K=512 h=%d; A at B 1 and 2, K 512 and 20,000 "
           "split over blocks, at all-ones B=1 K=70,000 (counts past 2^16), h 1/3/5/8, "
           "half- and all-padding, K=0; grouped streams of runs of ~%d "
@@ -690,7 +746,10 @@ def phase_kernels(gen, errors: Errors) -> None:
           "W 1/33/64, T 1, 3,001 and 100,003, misaligned words and cols, and packed in odd "
           "chunks into slices of one cols; L at W 1/33/64, K 1/37/300, classic h 1/3/8, slot "
           "at tile_rows 8/16/32/64 and cols of uint8/int16/int32, masks of 0, of many rows and "
-          "of rows 32-63 alone, whole and in two row slabs with their tile windows)"
+          "of rows 32-63 alone, whole and in two row slabs with their tile windows; L's strings "
+          "form at W 1/33/64, Q 1/7/256, K 1/37/300, duplicate positions, results in the last "
+          "word beside phantom samples and in any order, classic h 1/3/8, slot at tile_rows "
+          "8/16/32/64 (slots in rows 32-63), cols of uint8/int16/int32, a 20 kb query)"
           % (cases, W, M, B, H, HEADLINE_RUN, HEADLINE_R, DEFAULT_RUN, DEFAULT_R), flush=True)
 
 
@@ -747,6 +806,92 @@ def presence_checks(gen, errors: Errors) -> int:
                 if tr <= 32:
                     cols = fl.pack_tile_cols(words, tr)
                     cases += slabs("cols " + case, cols, "cols", tile, smask, tr, tiles)
+    return cases
+
+
+def strings_batch(rng, w: int, q: int, k: int, tiled: int, h: int = H):
+    """Q random queries of up to K distinct k-mers (the first exactly K)
+    over an m = 64 * 97 row matrix of W words: row ids int32[sum K, h]
+    (``tiled`` > 0: in one tile of that many rows, half the queries' slots
+    in rows 32-63 at 64), each query's positions visiting every k-mer and
+    a third of them again, and 0-3 results a query in a shuffled order,
+    every third query's last sample (past which the last word holds
+    phantom samples) among them.  -> the strings form's arguments after
+    the matrix and source, on the card."""
+    import torch
+
+    m, n = 64 * 97, 32 * w - (12 if w == 1 else 5)
+    rows, ko, pos, po, rq, rc = [], [0], [], [0], [], []
+    for i in range(q):
+        ki = k if i == 0 else int(rng.integers(1, k + 1))
+        if tiled:
+            low = 32 if tiled == 64 and i % 2 else 0
+            rows.append(rng.integers(0, m // tiled, size=(ki, 1)) * tiled
+                        + rng.integers(low, tiled, size=(ki, h)))
+        else:
+            rows.append(rng.integers(0, m, size=(ki, h)))
+        p = rng.permutation(np.concatenate([np.arange(ki), rng.integers(0, ki, ki // 3 + 1)]))
+        pos.append(p)
+        ko.append(ko[-1] + ki)
+        po.append(po[-1] + p.size)
+        colours = list(rng.choice(n, size=int(rng.integers(0, 4)), replace=False))
+        if i % 3 == 0 and n - 1 not in colours:
+            colours.append(n - 1)
+        rq += [i] * len(colours)
+        rc += colours
+    order = rng.permutation(len(rq))
+    dev = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(DEVICE)
+           for a in (np.concatenate(rows), ko, np.concatenate(pos), po, np.array(rq)[order],
+                     np.array(rc)[order])]
+    return dev
+
+
+def strings_checks(rng, errors: Errors) -> int:
+    """Kernel L's strings form against its plain version at ragged
+    shapes: W 1, 33 and 64, Q 1, 7 and 256 queries of up to K 1, 37 and
+    300 distinct k-mers (:func:`strings_batch`: duplicate positions,
+    results in any order, in the last word beside phantom samples);
+    classic at h 1, 3 and 8, slot at tile_rows 8, 16, 32 and 64, cols of
+    uint8, int16 and int32; then one 20 kb query (19,970 distinct k-mers)
+    on the classic and the int16 cols source.  Each case gives the
+    wrapper the plain version's offsets and an output filled with 0xEE
+    first.  -> the cases."""
+    import torch
+
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import lookup as plain
+
+    def one(case, matrix, source, args, tile_rows=1):
+        want = plain.presence_strings(matrix, source, *args, tile_rows)
+        out = torch.full_like(want[0], 0xEE)
+        got = fl.presence_strings(matrix, source, *args, tile_rows, res_off=want[1].clone(),
+                                  out=out)
+        errors.compare(STRINGS, got, want, case)
+        return 1
+
+    cases, m = 0, 64 * 97
+    sources = [("slot", tr) for tr in (8, 16, 32, 64)] + [("cols", tr) for tr in (8, 16, 32)]
+    for w in (1, 33, 64):
+        words = torch.from_numpy(rng.integers(-2**31, 2**31, size=(m, w), dtype=np.int32)).to(
+            DEVICE)
+        cols = {tr: fl.pack_tile_cols(words, tr) for tr in (8, 16, 32)}
+        for q in (1, 7, 256):
+            for k in (1, 37, 300):
+                case = "W=%d Q=%d K=%d" % (w, q, k)
+                h = (1, 3, 8)[cases % 3]
+                args = strings_batch(rng, w, q, k, 0, h)
+                cases += one("classic %s h=%d" % (case, h), words, "classic", args)
+                for source, tr in sources:
+                    args = strings_batch(rng, w, q, k, tr)
+                    matrix = cols[tr] if source == "cols" else words
+                    cases += one("%s %s tile_rows=%d" % (source, case, tr), matrix, source, args,
+                                 tr)
+        del cols
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, size=(m, W), dtype=np.int32)).to(DEVICE)
+    args = strings_batch(rng, W, 1, 20_000 - K_LEN + 1, 0)
+    cases += one("classic 20 kb", words, "classic", args)
+    args = strings_batch(rng, W, 1, 20_000 - K_LEN + 1, 16)
+    cases += one("cols 20 kb tile_rows=16", fl.pack_tile_cols(words, 16), "cols", args, 16)
     return cases
 
 
@@ -988,7 +1133,7 @@ def phase_mutation(rng) -> None:
         check("s2" in {r["sample_name"] for r in port.search(new[:400], 1.0)},
               "%s: the inserted sample is found under colour 2" % name)
         counted = {k: fn.launches for k, fn in fns.items()}
-        own = tuple(k for k in INDEXES[name][1] if k != PRESENCE)  # no scored search here
+        own = tuple(k for k in INDEXES[name][1] if k != STRINGS)  # no scored search here
         check(all(counted[k] > 0 for k in own) and
               not any(n for k, n in counted.items() if k not in own),
               "%s mutation launched its kernels %s and no other: %s" % (name, own, counted))
@@ -1200,38 +1345,43 @@ def queries_in(method: str, args) -> int:
 
 
 # a scored search_batch split by the facade's spans: the engine's counts,
-# then per hit query its presence rows (kernel L) and the presence strings
-# with the scorer, inside result building
+# then the presence strings of every hit query's results (kernel L's
+# strings form, one launch, and its copies) and the scorer, inside result
+# building
 SCORED_PARTS = {"counts": "search.batch_counts", "presence": "search.presence",
                 "score": "search.score", "results": "search.batch_results"}
 
 
 def scored_searches(name: str, port, oracles, q: str, seqs) -> dict:
     """A scored search of ``q`` and a scored search_batch of ``seqs`` at
-    0.7 on ``port`` must equal every oracle's, kernel L launching once
-    for the search and once per hit query of the batch (on a
-    DeviceEngine; a verified index scores on its classic host engine):
-    -> {"search_ms", "batch_ms" (host clock), "results": scored results
-    of the batch, "launches": L's in the batch, "split": the batch's
-    SCORED_PARTS in ms}."""
+    0.7 on ``port`` must equal every oracle's, kernel L's strings form
+    launching once for the search and once for the batch and its row
+    form never (on a DeviceEngine; a verified index scores on its classic
+    host engine): -> {"search_ms", "batch_ms" (host clock), "results":
+    scored results of the batch, "launches": the strings form's in the
+    batch, "split": the batch's SCORED_PARTS in ms}."""
     from bigsi_tpu_torch import metrics
     from bigsi_tpu_torch.ops import fused_lookup
 
     device = type(port.engine).__name__ == "DeviceEngine"
-    before = fused_lookup.presence_rows.launches
+    strings, rows = fused_lookup.presence_strings, fused_lookup.presence_rows
+    before, rows_before = strings.launches, rows.launches
     t0 = time.perf_counter()
     one = port.search(q, 0.7, score=True)
     t1 = time.perf_counter()
-    single = fused_lookup.presence_rows.launches - before
+    single = strings.launches - before
     timers = metrics.snapshot()["timers"]
     batch = port.search_batch(seqs, 0.7, score=True)
     t2 = time.perf_counter()
     after = metrics.snapshot()["timers"]
-    launches = fused_lookup.presence_rows.launches - before - single
+    launches = strings.launches - before - single
     hits = sum(1 for r in batch if r)
-    check(single == int(device) and launches == hits * int(device),
-          "%s: kernel L launched %d times for the scored search (expected %d) and %d for the "
-          "scored batch's %d hit queries" % (name, single, int(device), launches, hits))
+    check(single == int(device) and launches == int(device and hits > 0)
+          and rows.launches == rows_before,
+          "%s: kernel L's strings form launched %d times for the scored search (expected %d) "
+          "and %d for the scored batch of %d hit queries (expected %d), its row form %d times "
+          "(expected 0)" % (name, single, int(device), launches, hits,
+                            int(device and hits > 0), rows.launches - rows_before))
     split = {part: (after.get(t, {}).get("total_s", 0.0) - timers.get(t, {}).get("total_s", 0.0))
              * 1e3 for part, t in SCORED_PARTS.items()}
     for oracle in oracles:
@@ -1416,7 +1566,7 @@ def phase_slice(number: int, name: str, gen, rng):
     print("phase %d scored %s: search(score=True) of %d bp at 0.7 %.3f ms, search_batch(score="
           "True) of %d queries at 0.7 %.3f ms (host clock), %d scored results; equal to the "
           "host engine's; the batch split by the facade's spans: %s %.3f ms, %s %.3f ms "
-          "(kernel L launched %d times; %d hit queries), %s %.3f ms, %s %.3f ms "
+          "(kernel L's strings form launched %d times; %d hit queries), %s %.3f ms, %s %.3f ms "
           "(holding the presence and score spans: results alone %.3f ms)"
           % (number, name, QUERY_LEN, scored["search_ms"], B, scored["batch_ms"],
              scored["results"], SCORED_PARTS["counts"], split["counts"],
@@ -1921,6 +2071,7 @@ def phase_times(number: int, gpu: str, runs, errors: Errors, rng) -> dict:
         if name == "classic":
             batch_hash_times(number, gpu, seqs, mid, errors)
     presence_times(number, gpu, runs, errors, kernel_ms)
+    strings_times(number, gpu, runs, errors, kernel_ms)
     print("phase %d memory [%s]: peak %.2f GB allocated on the device"
           % (number, gpu, max(PEAK["bytes"], torch.cuda.max_memory_allocated()) / 1e9),
           flush=True)
@@ -1975,6 +2126,82 @@ def presence_times(number: int, gpu: str, runs, errors: Errors, kernel_ms: dict)
                   % (number, name, gpu, source, str(matrix.dtype).replace("torch.", ""),
                      list(matrix.shape), k, len(q), k_ms, p_ms, bound_ms(moved), moved / 1e6,
                      bound_ms(moved) / k_ms), flush=True)
+
+
+def scored_batch_inputs(port, seqs) -> tuple:
+    """A scored search_batch of ``seqs`` at 0.7 on ``port``, with the
+    arguments of its one call of kernel L's strings form recorded: ->
+    (positional arguments, keyword arguments: the engine's offsets and
+    output)."""
+    from bigsi_tpu_torch.index import device_engine
+
+    calls, real = [], device_engine.presence_strings
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    device_engine.presence_strings = spy
+    try:
+        port.search_batch(seqs, 0.7, score=True)
+    finally:
+        device_engine.presence_strings = real
+    check(len(calls) == 1, "one call of kernel L's strings form a scored batch: %d" % len(calls))
+    return calls[0]
+
+
+def row_form_args(matrix, source, rows, kmer_off, tile_rows) -> list:
+    """Kernel L's row-form arguments for each query of a strings-form
+    batch, as a DeviceEngine's presence_matrix builds them."""
+    from bigsi_tpu_torch.ops import lookup as plain
+
+    off = kmer_off.tolist()
+    out = []
+    for a, b in zip(off, off[1:]):
+        idx = rows[a:b]
+        if source == "classic":
+            out.append((matrix, source, idx))
+        else:
+            tile, smask = plain.slot_streams(idx, tile_rows)
+            out.append((matrix, source, tile, smask) + ((tile_rows,) if source == "slot" else ()))
+    return out
+
+
+def strings_times(number: int, gpu: str, runs, errors: Errors, kernel_ms: dict) -> None:
+    """Kernel L's strings form on each DeviceEngine index's own scored
+    batch (the arguments its engine gave the kernel in a scored
+    search_batch of the 256 queries at 0.7), held to its plain version
+    and timed beside it, its bound and kernel L's row form over the same
+    hit queries: each query's launch alone (cold L2) summed, and all of
+    them back to back in one timed window.  The classic index's batch
+    goes to the kernels line."""
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import lookup as plain
+    from bigsi_tpu_torch.scripts.timing import cuda_ms
+
+    for name, (port, seqs) in runs.items():
+        if name == VERIFIED:  # scores on its classic host engine: no kernel L
+            continue
+        args, kw = scored_batch_inputs(port, seqs)
+        matrix, source, rows, kmer_off = args[:4]
+        k_ms, p_ms = timed_kernel(STRINGS, lambda *a: fl.presence_strings(*a, **kw),
+                                  lambda *a: plain.presence_strings(*a), args, errors,
+                                  "%s scored batch" % name)
+        moved = bound_bytes(STRINGS, *args)
+        if name == "classic":
+            record(kernel_ms, STRINGS, k_ms, p_ms, moved)
+        per_query = row_form_args(matrix, source, rows, kmer_off, args[8])
+        alone = sum(cuda_ms(lambda a=a: fl.presence_rows(*a), 5, DEVICE) for a in per_query)
+        together = cuda_ms(lambda: [fl.presence_rows(*a) for a in per_query], 5, DEVICE)
+        print("phase %d strings %s [%s]: kernel L's strings form (%s source, %s %s) on the "
+              "scored batch's %d hit queries (%d distinct k-mers, %d positions, %d results, %d "
+              "bytes of strings) %.4f ms vs plain PyTorch %.4f ms (cold L2); bound %.5f ms by "
+              "bytes (%.3f MB), %.4f of bound; equal to its plain version; the row form over the "
+              "same queries: %d launches %.4f ms summed alone, %.4f ms back to back"
+              % (number, name, gpu, source, str(matrix.dtype).replace("torch.", ""),
+                 list(matrix.shape), kmer_off.shape[0] - 1, rows.shape[0], args[4].shape[0],
+                 args[6].shape[0], kw["out"].numel(), k_ms, p_ms, bound_ms(moved), moved / 1e6,
+                 bound_ms(moved) / k_ms, len(per_query), alone, together), flush=True)
 
 
 def phase_probe_ah(number: int, gpu: str, runs, gen, rng) -> None:
@@ -3571,6 +3798,9 @@ def main() -> None:
     for k in BUILD_KERNELS:
         launches[k] += built[k]
     mesh_ms, meshed = phase_mesh(number + 4, gpu, runs, gen, rng, errors, fns)
+    # kernel L's row form serves the meshes' (and the fleets') scored
+    # presence: its path is phase 13's, counted from 0 there
+    launches[PRESENCE] += meshed[PRESENCE]
     runs.clear()  # the card's memory to the ranks of phase 14
     import gc
 

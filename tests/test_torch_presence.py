@@ -7,7 +7,8 @@ The same inputs, made from seeded numpy, go through bigsi_tpu's
 tensors, which runs the kernel's plain PyTorch version.  At tile_rows 64,
 where the JAX engine's uint32 slot masks drop rows 32-63, the port is
 held to ``HostEngine``.  Then the engines that score: the port's
-``DeviceEngine`` (device ``"cpu"``) through the facade, the mesh engine
+``DeviceEngine`` (device ``"cpu"``) through the facade (its strings
+form, ``tests/test_torch_presence_strings.py``), the mesh engine
 on 8 positions of ``"cpu"`` and the fleet's presence op, each equal to
 the single-device engine.  Outputs are bit words, so every comparison is
 exact (tolerance zero).
@@ -253,16 +254,40 @@ def presence_calls(monkeypatch):
     return calls
 
 
+@pytest.fixture
+def strings_calls(monkeypatch):
+    """Counts the facade's calls of ``DeviceEngine.presence_strings`` and
+    records the source of each call that reaches the wrapper of kernel
+    L's strings form."""
+    calls = {"engine": 0, "kernel": []}
+    real_engine, real_kernel = DeviceEngine.presence_strings, fused_lookup.presence_strings
+
+    def engine(self, *args, **kw):
+        calls["engine"] += 1
+        return real_engine(self, *args, **kw)
+
+    def kernel(*args, **kw):
+        calls["kernel"].append(args[1])
+        return real_kernel(*args, **kw)
+
+    monkeypatch.setattr(DeviceEngine, "presence_strings", engine)
+    monkeypatch.setattr(device_engine, "presence_strings", kernel)
+    return calls
+
+
 @pytest.mark.parametrize("layout,tile_rows,reference", [
     ("classic", None, "tpu"), ("blocked", 16, "tpu"), ("minimizer", 8, "tpu"),
     ("minimizer", 16, "tpu"), ("minimizer", 32, "tpu"), ("minimizer", 64, "numpy"),
     ("blocked", 64, "numpy")])
-def test_scored_search_matches_jax_package(layout, tile_rows, reference, presence_calls):
+def test_scored_search_matches_jax_package(layout, tile_rows, reference, presence_calls,
+                                           strings_calls):
     """Scored search and search_batch on the port's DeviceEngine equal
-    bigsi_tpu's on its JAX engine (the host engine at tile_rows 64):
-    kernel L's wrapper runs once per scored search of a query with
-    k-mers and once per hit query of a scored search_batch, with the
-    layout's source."""
+    bigsi_tpu's on its JAX engine (the host engine at tile_rows 64).  The
+    facade asks the engine for presence strings once per scored search of
+    a query with k-mers and once per scored search_batch with hits; the
+    wrapper of kernel L's strings form runs, with the layout's source,
+    once per such call that has results to score, and kernel L's row
+    form never."""
     rng = np.random.default_rng(len(layout) * 100 + (tile_rows or 0))
     config = {"storage-engine": "memory",
               "storage-config": {"filename": "tp-%s-%s" % (layout, tile_rows)},
@@ -276,17 +301,22 @@ def test_scored_search_matches_jax_package(layout, tile_rows, reference, presenc
     ref = bigsi_tpu.BIGSI(dict(config, engine=reference))
     queries = [genomes[0], genomes[1][:120], genomes[2][50:250], random_seq(rng, 150),
                genomes[3][:20]]
+    scored = 0
     for q in queries:
-        assert port.search(q, 0.7, score=True) == ref.search(q, 0.7, score=True)
+        got = port.search(q, 0.7, score=True)
+        assert got == ref.search(q, 0.7, score=True)
+        scored += bool(got)
     if layout == "minimizer":
         want = "cols" if tile_rows <= 32 else "slot"
     else:
         want = "classic" if layout == "classic" else "slot"
-    assert presence_calls == [want] * 4  # every query with k-mers, hits or none
-    del presence_calls[:]
+    assert strings_calls["engine"] == 4  # every query with k-mers, hits or none
+    assert strings_calls["kernel"] == [want] * scored and scored >= 3
+    strings_calls["engine"], strings_calls["kernel"] = 0, []
     got = port.search_batch(queries, 0.7, score=True)
     assert got == ref.search_batch(queries, 0.7, score=True)
-    assert presence_calls == [want] * sum(1 for r in got if r)
+    assert strings_calls == {"engine": 1, "kernel": [want]}
+    assert presence_calls == []
 
 
 def mesh_and_single(layout, tile_rows, axes, rng):
