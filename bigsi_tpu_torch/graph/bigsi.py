@@ -84,7 +84,7 @@ from bigsi_tpu_torch.kmers import (
 )
 from bigsi_tpu_torch.scoring import Scorer
 from bigsi_tpu_torch.storage import get_storage
-from bigsi_tpu_torch.utils.profiling import device_trace, metrics, phase
+from bigsi_tpu_torch.utils.profiling import device_trace, metrics, phase, spans, trace_dir
 
 logger = logging.getLogger(__name__)
 
@@ -148,6 +148,8 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         if config is None:
             config = DEFAULT_CONFIG
         self.config = config
+        if trace_dir(config):  # the span log is on while a trace dir is set
+            spans.start()
         self.storage = get_storage(config)
         SampleMetadata.__init__(self, self.storage.kv)
         KmerSignatureIndex.__init__(
@@ -333,7 +335,14 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         query's results in one call (one kernel launch on the card; the
         reference scores per result with per-char string joins,
         ``bigsi.py:232-239``).
+
+        The call is one span, ``search.batch``: the root of every span it
+        opens, the recursive calls of its length splits included.
         """
+        with phase("search.batch"):
+            return self._search_batch(seqs, threshold, score)
+
+    def _search_batch(self, seqs, threshold, score):
         assert threshold <= 1
         seqs = list(seqs)
         if len(seqs) <= 1:
@@ -485,15 +494,9 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
             ).all()
         )
 
-    def _seq_batch_device(self, seqs, threshold):
-        """All-on-device serving path: pad query bytes, one program.
-
-        Returns the result lists, or None when the batch must take the
-        host-prep path (non-ACGT bytes — where 2-bit codes are not
-        injective and distinct-kmer semantics would drift from the
-        reference's raw-string set — or device grouped-entry
-        overflow).
-        """
+    def _seq_padded(self, seqs):
+        """The batch's bytes as (padded uint8[B, L] of ``A``-padded rows,
+        lens int32[B]), or None when they cannot take the seq arm."""
         b = len(seqs)
         try:
             flat = np.frombuffer(
@@ -518,6 +521,25 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
                 starts, lens
             )
             padded[rows, cols] = flat
+        return padded, lens
+
+    def _seq_batch_device(self, seqs, threshold):
+        """All-on-device serving path: pad query bytes, one program.
+
+        Returns the result lists, or None when the batch must take the
+        host-prep path (non-ACGT bytes — where 2-bit codes are not
+        injective and distinct-kmer semantics would drift from the
+        reference's raw-string set — or device grouped-entry
+        overflow).
+        """
+        b = len(seqs)
+        metrics.incr("search.seq_offered")
+        with phase("search.seq_prep"):  # join, encode, ACGT gate, padding
+            prep = self._seq_padded(seqs)
+        if prep is None:
+            metrics.incr("search.seq_gate_refused")
+            return None
+        padded, lens = prep
         with phase("search.batch_counts"):
             out = self.engine.counts_batch_seqs(
                 padded, lens, self.kmer_size, self.num_hashes,

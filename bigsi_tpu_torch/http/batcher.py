@@ -13,6 +13,10 @@ run as a single :meth:`BIGSI.search_batch` call (up to ``max_batch``).
 Requests are grouped by ``(threshold, score)`` since those change the
 result semantics, not the device program.  ``score=True`` queries pass
 straight through (scoring needs per-kmer presence, a per-query path).
+
+Each dispatch is a span, ``serve.dispatch``; each request's wait, from
+its enqueue to the start of the dispatch that serves it, is the timer
+``serve.queue_wait``, in the span log a child of that dispatch.
 """
 
 from __future__ import annotations
@@ -22,13 +26,13 @@ import queue
 import threading
 import time
 
-from bigsi_tpu_torch.utils.profiling import metrics
+from bigsi_tpu_torch.utils.profiling import current_span, metrics, phase, record_span
 
 logger = logging.getLogger(__name__)
 
 
 class _Pending:
-    __slots__ = ("seq", "threshold", "event", "result", "error")
+    __slots__ = ("seq", "threshold", "event", "result", "error", "queued_ns", "thread")
 
     def __init__(self, seq, threshold):
         self.seq = seq
@@ -36,6 +40,8 @@ class _Pending:
         self.event = threading.Event()
         self.result = None
         self.error = None
+        self.queued_ns = time.perf_counter_ns()
+        self.thread = threading.get_ident()
 
 
 class QueryBatcher:
@@ -126,9 +132,14 @@ class QueryBatcher:
             for i in range(0, len(whole), self.max_batch):
                 group = whole[i : i + self.max_batch]
                 try:
-                    results = self.bigsi.search_batch(
-                        [p.seq for p in group], threshold
-                    )
+                    with phase("serve.dispatch"):
+                        started, dispatch = time.perf_counter_ns(), current_span()
+                        for p in group:
+                            record_span("serve.queue_wait", p.queued_ns, started, dispatch,
+                                        p.thread)
+                        results = self.bigsi.search_batch(
+                            [p.seq for p in group], threshold
+                        )
                     for p, r in zip(group, results):
                         p.result = r
                 except Exception as e:  # noqa: BLE001 — delivered to callers

@@ -48,6 +48,7 @@ per-bucket budgets are defined on.
 
 from __future__ import annotations
 
+import contextvars
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -63,7 +64,7 @@ from bigsi_tpu_torch.hashing.scheme import (
 )
 from bigsi_tpu_torch.index.verify import live_queries
 from bigsi_tpu_torch.matrix.bitmatrix import BitSliceMatrix
-from bigsi_tpu_torch.utils.profiling import phase
+from bigsi_tpu_torch.utils.profiling import metrics, phase
 from bigsi_tpu_torch.ops import lookup as plain
 from bigsi_tpu_torch.ops.fused_lookup import (
     classic_counts,
@@ -253,6 +254,16 @@ def tile_streams(row_idx: torch.Tensor, mask: torch.Tensor, tile_rows: int):
     return torch.where(mask, tile, 0), torch.where(mask, smask, 0)
 
 
+def counts_to_host(counts: torch.Tensor) -> np.ndarray:
+    """Device counts -> int64 numpy, in two spans: ``engine.counts_back``
+    (the copy, which waits for the kernels before it) and
+    ``engine.widen`` (int32 -> int64 on the host)."""
+    with phase("engine.counts_back"):
+        host = counts.cpu()
+    with phase("engine.widen"):
+        return host.numpy().astype(np.int64)
+
+
 def kmer_streams_to_device(prep, device):
     """The native prep's (utile int32[B, U], gmask uint32[B, U, r],
     n_valid int32[B]) -> the same on ``device``, gmask as int64, as
@@ -333,9 +344,10 @@ class DeviceEngine:
     def _reduce(self, row_idx: np.ndarray, mask: np.ndarray):
         """row ids int[B, K, h], bool[B, K] -> (counts int32[B, W * 32],
         exact int32[B, W]) on the device, through the layout's kernel."""
-        self._check_rows(row_idx)
-        idx = self._to_device(row_idx, np.int32)
-        valid = self._to_device(mask, bool)
+        with phase("engine.rows_in"):  # the id check, conversions, copies in
+            self._check_rows(row_idx)
+            idx = self._to_device(row_idx, np.int32)
+            valid = self._to_device(mask, bool)
         if not self.tiled:
             return classic_counts(self.words, idx, valid)
         tile, smask = tile_streams(idx, valid, self.tile_rows)
@@ -461,7 +473,7 @@ class DeviceEngine:
         if b == 0 or k == 0:
             return np.zeros((b, num_cols), dtype=np.int64)
         counts, _ = self._reduce(row_idx, mask)
-        return counts[:, :num_cols].cpu().numpy().astype(np.int64)
+        return counts_to_host(counts[:, :num_cols])
 
     # -- the k-mer serving path (minimizer cols, slot scheme 2 or 3)
 
@@ -500,7 +512,7 @@ class DeviceEngine:
         with phase("engine.kmer_counts"):
             utile, gmask, n_valid = kmer_streams_to_device(prep, self.device)
             counts, _ = cols_counts(self.cols, utile, gmask, n_valid)
-            return counts[:, :num_cols].cpu().numpy().astype(np.int64)
+            return counts_to_host(counts[:, :num_cols])
 
     def counts_batch_kmers(
         self, kmer_rows: np.ndarray, qstart: np.ndarray, h: int, num_cols: int
@@ -524,12 +536,13 @@ class DeviceEngine:
             return self._prep_kmer_chunk(kmer_rows[r0:r1], qstart[q0 : q1 + 1] - r0, h)
 
         out = np.zeros((b, num_cols), dtype=np.int64)
+        # the worker's spans are children of the caller's
         with ThreadPoolExecutor(max_workers=1) as pool:
-            pending = pool.submit(prep, spans[0])
+            pending = pool.submit(contextvars.copy_context().run, prep, spans[0])
             for i, (q0, q1) in enumerate(spans):
                 ready = pending.result()
                 if i + 1 < len(spans):
-                    pending = pool.submit(prep, spans[i + 1])
+                    pending = pool.submit(contextvars.copy_context().run, prep, spans[i + 1])
                 out[q0:q1] = self._dispatch_kmer_chunk(ready, num_cols)
         return out
 
@@ -575,15 +588,20 @@ class DeviceEngine:
         falls back to the host paths).  ACGT-only bytes are the caller's
         contract.  The tight budget is tried first; an overflow escalates
         to the safe one in the same call and keeps it for the batch's
-        length bucket for SEQ_CAP_DECAY clean batches."""
+        length bucket for SEQ_CAP_DECAY clean batches.  Counters:
+        ``engine.seq_calls`` (b > 0), ``engine.seq_launches`` (H and E,
+        once a budget tried) and ``engine.seq_refused`` (None returned)."""
         b, _ = seqs.shape
         if b == 0:
             return np.zeros((0, num_cols), dtype=np.int64), np.zeros(0, dtype=np.int32)
+        metrics.incr("engine.seq_calls")
         s = window_to_s(k, self.minimizer_window) or default_minimizer_s(k)
         window = k - s + 1
         num_tiles = max(1, self.matrix.num_rows // self.tile_rows)
-        geom = seq_batch_geometry(seqs, lens, k, window)
+        with phase("engine.seq_geometry"):
+            geom = seq_batch_geometry(seqs, lens, k, window)
         if geom is None:
+            metrics.incr("engine.seq_refused")
             return None
         padded, lens_b, lb, u_big = geom
         u_small = self._seq_u_tight(lb - k + 1, window)
@@ -594,6 +612,7 @@ class DeviceEngine:
             pd = self._to_device(padded, np.uint8)
             ld = self._to_device(lens_b, np.int32)
         for cap in caps:
+            metrics.incr("engine.seq_launches")
             with phase("engine.seq_kernels"):  # kernels H and E, then the ok read
                 counts, n_valid, ok = _counts_batch_seqs(
                     self.cols, pd, ld, k=k, s=s, num_tiles=num_tiles, h=h,
@@ -605,12 +624,10 @@ class DeviceEngine:
                 if cap == u_big and remaining > 0:
                     esc[lb] = remaining - 1
                 with phase("engine.seq_out"):
-                    return (
-                        counts[:b, :num_cols].cpu().numpy().astype(np.int64),
-                        n_valid[:b].cpu().numpy(),
-                    )
+                    return counts_to_host(counts[:b, :num_cols]), n_valid[:b].cpu().numpy()
             if cap != u_big:
                 esc[lb] = self.SEQ_CAP_DECAY
+        metrics.incr("engine.seq_refused")
         return None
 
 

@@ -55,6 +55,7 @@ from bigsi_tpu_torch.hashing.scheme import (
 )
 from bigsi_tpu_torch.index.device_engine import (
     TILED_LAYOUTS,
+    counts_to_host,
     load_cols,
     load_words,
     resolve_device,
@@ -715,8 +716,7 @@ class MeshEngine:
         if not fits:
             return None
         with phase("engine.seq_out"):
-            return (counts[:b, :num_cols].cpu().numpy().astype(np.int64),
-                    n_valid[:b].cpu().numpy())
+            return counts_to_host(counts[:b, :num_cols]), n_valid[:b].cpu().numpy()
 
     # -- batched search
 
@@ -744,7 +744,7 @@ class MeshEngine:
         if b == 0 or k == 0:
             return np.zeros((b, num_cols), dtype=np.int64)
         counts, _ = self._reduce(row_idx, mask)
-        return counts[:b, :num_cols].cpu().numpy().astype(np.int64)
+        return counts_to_host(counts[:b, :num_cols])
 
     # -- the single-query surface: `packed` is an opaque handle the facade
     #    passes back; the empty query stays a numpy array

@@ -22,9 +22,11 @@ from bigsi_tpu import storage as ref_storage
 from bigsi_tpu.index import device_engine as jax_engine
 from bigsi_tpu.kmers import seq_to_kmers
 from bigsi_tpu_torch import storage
+from bigsi_tpu_torch.http.batcher import QueryBatcher
 from bigsi_tpu_torch.http.server import make_server
 from bigsi_tpu_torch.index import device_engine
 from bigsi_tpu_torch.index.device_engine import DeviceEngine
+from bigsi_tpu_torch.utils import profiling
 
 K = 31
 BASES = np.array(list("ACGT"))
@@ -135,6 +137,163 @@ def test_counts_batch_seqs_spans_split_the_engine_call():
     assert [timers[s]["count"] for s in spans] == [1, 1, 1]
     inside = sum(timers[s]["total_s"] for s in spans)
     assert inside <= timers["search.batch_counts"]["total_s"]
+
+
+@pytest.fixture
+def span_log(monkeypatch):
+    """The port's span log, on and empty; off again after."""
+    monkeypatch.setattr(profiling, "_SPANS_ON", False)
+    profiling.spans.clear()
+    profiling.spans.start()
+    yield profiling.spans
+    profiling.spans.clear()
+
+
+class Deltas:
+    """The port's registry over a block: counters and timer counts."""
+
+    def __enter__(self):
+        self.before = bigsi_tpu_torch.metrics.snapshot()
+        return self
+
+    def __exit__(self, *exc):
+        after = bigsi_tpu_torch.metrics.snapshot()
+        self.counters = {k: v - self.before["counters"].get(k, 0)
+                         for k, v in after["counters"].items()}
+        self.timers = {k: v["count"] - self.before["timers"].get(k, {}).get("count", 0)
+                       for k, v in after["timers"].items()}
+
+
+def one_call(records):
+    """-> (the search.batch root, {name: [records]}) of a log holding one
+    call, every record of which carries the root's call id."""
+    roots = [r for r in records if r.name == "search.batch"]
+    assert len(roots) == 1 and roots[0].parent is None
+    root = roots[0]
+    assert all(r.call == root.id for r in records)
+    by_name = {}
+    for r in records:
+        by_name.setdefault(r.name, []).append(r)
+    return root, by_name
+
+
+def test_classic_batch_spans_nest_under_one_call(span_log):
+    """search.batch holds search.batch_counts, which holds the engine's
+    rows in, counts back and widening, all of one call."""
+    config, genomes, _ = make_index("classic-spans", n=4, glen=300, layout="classic")
+    port = bigsi_tpu_torch.BIGSI(config, device="cpu")
+    queries = [g[10:200] for g in genomes]
+    span_log.clear()  # the build's and the load's spans
+    with Deltas() as d:
+        got = port.search_batch(queries, 0.7)
+    assert got == bigsi_tpu.BIGSI(dict(config, engine="numpy")).search_batch(queries, 0.7)
+    root, by = one_call(span_log.records())
+    (counts,) = by["search.batch_counts"]
+    assert counts.parent == root.id
+    for name in ("engine.rows_in", "engine.counts_back", "engine.widen"):
+        (r,) = by[name]
+        assert r.parent == counts.id and counts.start_ns <= r.start_ns <= r.end_ns <= counts.end_ns
+    assert by["engine.rows_in"][0].end_ns <= by["engine.counts_back"][0].start_ns
+    assert by["engine.counts_back"][0].end_ns <= by["engine.widen"][0].start_ns
+    assert d.timers["search.batch"] == d.timers["engine.rows_in"] == 1
+
+
+def test_seq_batch_spans_and_counters(span_log):
+    """A minimizer/16 scheme-3 batch: the facade's prep and the engine's
+    bucketing as spans of the call, and the seq arm's counters."""
+    config, genomes, rng = make_index("seq-spans")
+    port = bigsi_tpu_torch.BIGSI(config, device="cpu")
+    queries = [g[5:305] for g in genomes] + [random_seq(rng, 250)]
+    span_log.clear()  # the build's and the load's spans
+    with Deltas() as d:
+        got = port.search_batch(queries, 0.7)
+    assert got == bigsi_tpu.BIGSI(dict(config, engine="numpy")).search_batch(queries, 0.7)
+    root, by = one_call(span_log.records())
+    (prep,), (counts,) = by["search.seq_prep"], by["search.batch_counts"]
+    assert prep.parent == counts.parent == root.id and prep.end_ns <= counts.start_ns
+    for name in ("engine.seq_geometry", "engine.seq_in", "engine.seq_kernels", "engine.seq_out"):
+        (r,) = by[name]
+        assert r.parent == counts.id
+    (out,) = by["engine.seq_out"]
+    for name in ("engine.counts_back", "engine.widen"):
+        (r,) = by[name]
+        assert r.parent == out.id
+    assert {k: d.counters.get(k, 0) for k in (
+        "search.seq_offered", "search.seq_gate_refused", "engine.seq_calls",
+        "engine.seq_launches", "engine.seq_refused")} == {
+        "search.seq_offered": 1, "search.seq_gate_refused": 0, "engine.seq_calls": 1,
+        "engine.seq_launches": 1, "engine.seq_refused": 0}
+    assert d.timers["search.seq_prep"] == d.timers["engine.seq_geometry"] == 1
+
+
+def test_an_n_base_counts_a_gate_refusal():
+    config, genomes, _ = make_index("gate-count")
+    port = bigsi_tpu_torch.BIGSI(config, device="cpu")
+    qs = [genomes[0][:150], genomes[1][:80] + "N" + genomes[1][81:150]]
+    with Deltas() as d:
+        got = port.search_batch(qs, 0.7)
+    assert got == bigsi_tpu.BIGSI(dict(config, engine="numpy")).search_batch(qs, 0.7)
+    assert d.counters["search.seq_offered"] == d.counters["search.seq_gate_refused"] == 1
+    assert d.counters.get("engine.seq_calls", 0) == 0 and d.timers["search.seq_prep"] == 1
+
+
+def test_a_tight_overflow_counts_two_launches_for_one_call(monkeypatch):
+    """The tight budget overflows and the safe one serves: two launches,
+    one call, none refused (one launch of two wasted)."""
+    config, genomes, _ = make_index("overflow-count")
+    port = bigsi_tpu_torch.BIGSI(config, device="cpu")
+    monkeypatch.setattr(DeviceEngine, "_seq_u_tight", staticmethod(lambda nk, w: 2))
+    qs = [g[:200] for g in genomes[:3]]
+    with Deltas() as d:
+        got = port.search_batch(qs, 0.7)
+    assert got == bigsi_tpu.BIGSI(dict(config, engine="numpy")).search_batch(qs, 0.7)
+    c = d.counters
+    assert (c["engine.seq_calls"], c["engine.seq_launches"], c.get("engine.seq_refused", 0)) == (
+        1, 2, 0)
+    assert c["engine.seq_launches"] > c["engine.seq_calls"] and d.timers["engine.seq_kernels"] == 2
+
+
+def test_a_refused_seq_call_is_counted(monkeypatch):
+    """Both budgets overflow: the call launches twice, returns None and the
+    k-mer path answers."""
+    config, genomes, _ = make_index("refused-count")
+    port = bigsi_tpu_torch.BIGSI(config, device="cpu")
+    monkeypatch.setattr(DeviceEngine, "_seq_u_tight", staticmethod(lambda nk, w: 2))
+    monkeypatch.setattr(DeviceEngine, "_seq_u_cap", staticmethod(lambda nk, w: 4))
+    qs = [g[:200] for g in genomes[:3]]
+    with Deltas() as d:
+        got = port.search_batch(qs, 0.7)
+    assert got == bigsi_tpu.BIGSI(dict(config, engine="numpy")).search_batch(qs, 0.7)
+    c = d.counters
+    assert (c["engine.seq_calls"], c["engine.seq_launches"], c["engine.seq_refused"]) == (1, 2, 1)
+
+
+def test_batcher_times_each_requests_wait_under_its_dispatch(span_log):
+    """serve.queue_wait once a request; in the log each is a child of the
+    serve.dispatch span that served it, and shares that span's call."""
+    config, genomes, _ = make_index("batcher-wait")
+    port = bigsi_tpu_torch.BIGSI(config, device="cpu")
+    batcher = QueryBatcher(port, max_wait_ms=200)
+    qs = [g[30:230] for g in genomes]
+    span_log.clear()  # the build's and the load's spans
+    try:
+        with Deltas() as d:
+            with ThreadPoolExecutor(max_workers=len(qs)) as pool:
+                outs = list(pool.map(lambda q: batcher.search(q, 0.7), qs))
+    finally:
+        batcher.close()
+    assert outs == [port.search(q, 0.7) for q in qs]
+    assert d.timers["serve.queue_wait"] == len(qs)
+    recs = span_log.records()
+    dispatch = {r.id: r for r in recs if r.name == "serve.dispatch"}
+    waits = [r for r in recs if r.name == "serve.queue_wait"]
+    assert len(waits) == len(qs) and len(dispatch) == d.timers["serve.dispatch"] >= 1
+    for w in waits:
+        assert w.parent in dispatch and w.call == dispatch[w.parent].call
+        assert w.start_ns <= w.end_ns <= dispatch[w.parent].end_ns
+    for r in recs:
+        if r.name == "search.batch":
+            assert r.parent in dispatch
 
 
 def test_seq_path_duplicate_kmers_distinct_semantics(monkeypatch):
