@@ -885,6 +885,174 @@ void minimizer_tiles_v3(const uint8_t* kmers, int64_t K, int k, int s,
   }
 }
 
+// ---------------------------------------------------- classic query prep
+//
+// One threaded pass per classic search_batch, from the batch's query
+// bytes to its padded bloom row ids (the facade's per-query route takes
+// four steps: k-mer matrix, void-record dedup, canonicalize_kmers and
+// hash_kmer_batch).  Per query, a rolling pass over 2-bit codes:
+//
+//   * dedup on the query-form (forward) code in first-seen order: the
+//     reference's set() of raw k-mer strings, so a k-mer and its reverse
+//     complement in one query are two k-mers;
+//   * canonical = min(fwd, rc): MSB-first packing keeps lexicographic
+//     order on ACGT, so this is kmers.py's canonical form;
+//   * row j = murmur3_32(canonical ASCII bytes, seed j) floor-mod m, the
+//     bytes read from the code a 4-byte block at a time through a table;
+//     bit-identical to hash_kmer_batch.
+//
+// ACGT-only input is the caller's contract (other bytes make the 2-bit
+// codes non-injective).  seqs: concatenated query bytes; sstart: [B+1]
+// offsets.  Threads over byte-balanced query ranges write each query's
+// ids into out as int32 [B, K_cap, h] (K_cap = max(1, max L - k + 1),
+// zero past its n[q] distinct k-mers); then, where the batch's kmax =
+// max(1, max n) is less than K_cap, one ascending pass moves each row to
+// its place in [B, kmax, h] (a row's new place lies below every later
+// row's old one).  Returns kmax, or -1 on bad parameters or when out
+// (out_cap int32s) cannot hold [B, K_cap, h].
+
+// floor-mod of a signed 32-bit hash by m < 2^31 through Lemire's fastmod
+// (a multiply for the hardware division): u mod m of the hash's bits u,
+// less 2^32 mod m where the hash is negative
+struct FloorMod32 {
+  uint64_t magic;
+  uint32_t m, wrap;
+  explicit FloorMod32(uint32_t m_)
+      : magic(~0ull / m_ + 1), m(m_), wrap((uint32_t)((1ull << 32) % m_)) {}
+  inline int32_t operator()(uint32_t u) const {
+    const uint32_t r = (uint32_t)(((__uint128_t)(magic * u) * m) >> 64);
+    if ((int32_t)u >= 0) return (int32_t)r;
+    return r >= wrap ? (int32_t)(r - wrap) : (int32_t)(r + (m - wrap));
+  }
+};
+
+static inline void classic_rows_from_code(uint64_t code, int k, int h,
+                                          const FloorMod32& mod,
+                                          const uint32_t* ascii4,
+                                          int32_t* out) {
+  const uint32_t c1 = 0xcc9e2d51u, c2 = 0x1b873593u;
+  const int nb = k >> 2, ntail = k & 3;
+  uint32_t blocks[8];  // the seed-free half of each block's mix
+  for (int i = 0; i < nb; i++) {
+    uint32_t k1 = ascii4[(code >> (2 * (k - 4 - 4 * i))) & 0xFF];
+    k1 *= c1; k1 = rotl32(k1, 15); k1 *= c2;
+    blocks[i] = k1;
+  }
+  uint32_t kt = 0;
+  if (ntail) {
+    // the last ntail bases, moved to the top of one byte; the bytes of
+    // the A-padding past them are masked off
+    kt = ascii4[(code << (2 * (4 - ntail))) & 0xFF] &
+         ((1u << (8 * ntail)) - 1);
+    kt *= c1; kt = rotl32(kt, 15); kt *= c2;
+  }
+  for (int s = 0; s < h; s++) {
+    uint32_t h1 = (uint32_t)s;
+    for (int i = 0; i < nb; i++) {
+      h1 ^= blocks[i]; h1 = rotl32(h1, 13); h1 = h1 * 5 + 0xe6546b64u;
+    }
+    h1 ^= kt;
+    h1 ^= (uint32_t)k;
+    out[s] = mod(fmix32(h1));
+  }
+}
+
+int64_t prep_classic_seqs(const uint8_t* seqs, const int64_t* sstart,
+                          int64_t B, int k, int h, int64_t m, int nthreads,
+                          int32_t* out, int64_t out_cap, int32_t* n) {
+  if (k < 1 || k > 32 || h < 1 || m < 1 || m >= (1ll << 31) || B < 0)
+    return -1;
+  // ascii4[b]: the ASCII bytes of byte b's four 2-bit codes (first base
+  // in the top bits) as a little-endian word, murmur's block order
+  uint32_t ascii4[256];
+  static const uint8_t BASES[4] = {'A', 'C', 'G', 'T'};
+  for (int b = 0; b < 256; b++)
+    ascii4[b] = (uint32_t)BASES[b >> 6] | (uint32_t)BASES[(b >> 4) & 3] << 8 |
+                (uint32_t)BASES[(b >> 2) & 3] << 16 | (uint32_t)BASES[b & 3] << 24;
+  const FloorMod32 mod((uint32_t)m);
+  const uint64_t kmask = (k == 32) ? ~0ull : ((1ull << (2 * k)) - 1);
+  const int kshift = 2 * (k - 1);
+  if (nthreads < 1) nthreads = 1;
+  if (nthreads > B) nthreads = B > 0 ? (int)B : 1;
+  // byte-balanced query ranges [qb[t], qb[t+1])
+  std::vector<int64_t> qb((size_t)nthreads + 1, B);
+  qb[0] = 0;
+  const int64_t total = B > 0 ? sstart[B] - sstart[0] : 0;
+  for (int t = 1; t < nthreads; t++) {
+    const int64_t target = sstart[0] + total * t / nthreads;
+    qb[(size_t)t] = std::lower_bound(sstart, sstart + B, target) - sstart;
+  }
+  int64_t k_cap = 1;
+  for (int64_t q = 0; q < B; q++)
+    k_cap = std::max<int64_t>(k_cap, sstart[q + 1] - sstart[q] - k + 1);
+  if (B * k_cap * h > out_cap) return -1;
+
+  auto fill = [&](int t) {
+    const int64_t b0 = qb[(size_t)t], b1 = qb[(size_t)t + 1];
+    int64_t nk_max = 0;
+    for (int64_t q = b0; q < b1; q++)
+      nk_max = std::max<int64_t>(nk_max, sstart[q + 1] - sstart[q] - k + 1);
+    uint64_t tcap = 16;
+    while (tcap < (uint64_t)(2 * nk_max)) tcap <<= 1;
+    std::vector<uint64_t> seen((size_t)tcap);
+    std::vector<uint64_t> used((size_t)((tcap + 63) / 64));
+    for (int64_t q = b0; q < b1; q++) {
+      const uint8_t* sq = seqs + sstart[q];
+      const int64_t len = sstart[q + 1] - sstart[q];
+      const int64_t nk = len >= k ? len - k + 1 : 0;
+      // the query's own table: pow2 >= 2 * nk (load factor <= 0.5)
+      uint64_t tsize = 16;
+      while (tsize < (uint64_t)(2 * nk)) tsize <<= 1;
+      const uint64_t tmask = tsize - 1;
+      if (nk > 0)
+        std::memset(used.data(), 0, sizeof(uint64_t) * (size_t)((tsize + 63) / 64));
+      int32_t* row = out + q * k_cap * h;
+      int64_t distinct = 0;
+      uint64_t fwd = 0, rc = 0;
+      for (int64_t i = 0; i < len; i++) {
+        const uint64_t c = base_code(sq[i]);
+        fwd = ((fwd << 2) | c) & kmask;
+        rc = (rc >> 2) | ((3 - c) << kshift);
+        if (i < k - 1) continue;
+        uint64_t probe = splitmix64(fwd) & tmask;
+        bool dup = false;
+        for (;;) {
+          uint64_t& word = used[(size_t)(probe >> 6)];
+          const uint64_t bit = 1ull << (probe & 63);
+          if (!(word & bit)) {
+            word |= bit;
+            seen[(size_t)probe] = fwd;
+            break;
+          }
+          if (seen[(size_t)probe] == fwd) { dup = true; break; }
+          probe = (probe + 1) & tmask;
+        }
+        if (dup) continue;
+        classic_rows_from_code(std::min(fwd, rc), k, h, mod, ascii4,
+                               row + distinct * h);
+        distinct++;
+      }
+      std::memset(row + distinct * h, 0,
+                  sizeof(int32_t) * (size_t)((k_cap - distinct) * h));
+      n[q] = (int32_t)distinct;
+    }
+  };
+  if (nthreads <= 1) {
+    fill(0);
+  } else {
+    std::vector<std::thread> threads;
+    for (int t = 0; t < nthreads; t++) threads.emplace_back(fill, t);
+    for (auto& th : threads) th.join();
+  }
+  int64_t kmax = 1;
+  for (int64_t q = 0; q < B; q++) kmax = std::max<int64_t>(kmax, n[q]);
+  if (kmax < k_cap)
+    for (int64_t q = 1; q < B; q++)
+      std::memmove(out + q * kmax * h, out + q * k_cap * h,
+                   sizeof(int32_t) * (size_t)(kmax * h));
+  return kmax;
+}
+
 // --------------------------------------------------------- query (host)
 
 // AND h packed rows per kmer and accumulate per-sample counts.

@@ -56,12 +56,16 @@ import functools
 import json
 import logging
 import math
+import os
+import threading
 
 import numpy as np
 
+from bigsi_tpu_torch import native
 from bigsi_tpu_torch.bloom import BloomFilter
 from bigsi_tpu_torch.constants import DEFAULT_CONFIG, DEFAULT_NPROC
 from bigsi_tpu_torch.graph.metadata import DELETION_SPECIAL_SAMPLE_NAME, SampleMetadata
+from bigsi_tpu_torch.hashing.scheme import CLASSIC
 from bigsi_tpu_torch.index import verify
 from bigsi_tpu_torch.index.device_engine import (
     DeviceEngine,
@@ -159,6 +163,10 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         self.device = device
         self.min_unique_kmers_in_query = MIN_UNIQUE_KMERS_IN_QUERY
         self.scorer = Scorer(self.num_samples)
+        # each calling thread's buffer of the classic native pass's row ids,
+        # reused call after call: a fresh 9 MB a genes call let glibc trim
+        # and fault its heap afresh every call (PERF.md §6)
+        self._classic_ids = threading.local()
         # verified indexes: the classic matrix goes to the device for the
         # verify when it fits.  Staging is lazy (the first batched
         # verify): single-query serving never pays the upload.
@@ -413,6 +421,10 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
                     for j, i in enumerate(long_i):
                         out[i] = lres[j]
                     return out
+        if self.layout == CLASSIC and self.screen is None:
+            res = self._classic_batch_native(seqs, threshold, score)
+            if res is not None:
+                return res
         # per-query k-mer prep, shared by both dispatch paths; the
         # (uniq, inverse) pairs feed the post-counts scoring pass
         mats, inverses, nks = [], [], []
@@ -469,15 +481,67 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
                 mask[i, :nk] = True
         with phase("search.batch_counts"):
             counts = self._counts_batch(idx, mask)
-        if self.side is not None:
-            sidec = np.zeros((b, self.side.num_cols), dtype=counts.dtype)
-            for i, (row_idx, nk) in enumerate(per_query):
-                if nk:
-                    sidec[i] = self.side.presence(row_idx).sum(axis=0)
-            counts = np.concatenate([counts, sidec], axis=1)
         metrics.incr("search.queries", b)
         metrics.incr("search.kmers", int(mask.sum()))
-        return self._batch_results(per_query, counts, threshold, score_info)
+        return self._batch_results(
+            per_query, self._with_side(counts, per_query), threshold, score_info
+        )
+
+    def _with_side(self, counts, per_query):
+        """The engine's counts with the staged columns' appended."""
+        if self.side is None:
+            return counts
+        sidec = np.zeros((len(per_query), self.side.num_cols), dtype=counts.dtype)
+        for i, (row_idx, nk) in enumerate(per_query):
+            if nk:
+                sidec[i] = self.side.presence(row_idx).sum(axis=0)
+        return np.concatenate([counts, sidec], axis=1)
+
+    def _classic_batch_native(self, seqs, threshold, score):
+        """A classic batch in one threaded native pass from its bytes to
+        its padded row ids (``native.prep_classic_seqs``: extraction,
+        dedup, canonical rows and padding), then the engine's counts.
+
+        Returns the result lists, or None when the batch must take the
+        per-query route: scored (scoring wants each query's inverse map),
+        k past 32, no native library, or bytes other than ACGT (where
+        2-bit codes are not injective) or not ASCII text.  Counters
+        ``search.kmer_native_offered`` / ``search.kmer_native_refused``.
+        """
+        metrics.incr("search.kmer_native_offered")
+        prep = None
+        with phase("search.kmer_prep"):  # join, encode, ACGT gate, native pass
+            if (
+                not score
+                and self.kmer_size <= 32
+                and not os.environ.get("BIGSI_TPU_NO_NATIVE")
+                and native.available()
+            ):
+                flat = self._acgt_bytes(seqs)
+                if flat is not None:
+                    lens = [len(s) for s in seqs]
+                    sstart = np.zeros(len(seqs) + 1, dtype=np.int64)
+                    np.cumsum(lens, out=sstart[1:])
+                    size = len(seqs) * max(1, max(lens) - self.kmer_size + 1) * self.num_hashes
+                    buf = getattr(self._classic_ids, "buf", None)
+                    if buf is None or buf.size < size:
+                        buf = self._classic_ids.buf = np.empty(size, dtype=np.int32)
+                    prep = native.prep_classic_seqs(
+                        flat, sstart, self.kmer_size, self.num_hashes,
+                        self.bloomfilter_size, out=buf,
+                    )
+        if prep is None:
+            metrics.incr("search.kmer_native_refused")
+            return None
+        idx, nks = prep
+        with phase("search.pad"):
+            mask = np.arange(idx.shape[1]) < nks[:, None]
+        with phase("search.batch_counts"):
+            counts = self._counts_batch(idx, mask)
+        per_query = [(idx[i, :nk], nk) for i, nk in enumerate(nks.tolist())]
+        metrics.incr("search.queries", len(seqs))
+        metrics.incr("search.kmers", int(nks.sum()))
+        return self._batch_results(per_query, self._with_side(counts, per_query), threshold)
 
     @staticmethod
     def _all_acgt(flat: np.ndarray) -> bool:
@@ -494,17 +558,21 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
             ).all()
         )
 
+    def _acgt_bytes(self, seqs):
+        """The batch's bytes joined as uint8[total], or None unless every
+        query is a str of ACGT alone."""
+        try:
+            flat = np.frombuffer("".join(seqs).encode("ascii"), dtype=np.uint8)
+        except (TypeError, UnicodeEncodeError):
+            return None  # bytes-like/odd input: host path handles it
+        return flat if self._all_acgt(flat) else None
+
     def _seq_padded(self, seqs):
         """The batch's bytes as (padded uint8[B, L] of ``A``-padded rows,
         lens int32[B]), or None when they cannot take the seq arm."""
         b = len(seqs)
-        try:
-            flat = np.frombuffer(
-                "".join(seqs).encode("ascii"), dtype=np.uint8
-            )
-        except (TypeError, UnicodeEncodeError):
-            return None  # bytes-like/odd input: host path handles it
-        if not self._all_acgt(flat):
+        flat = self._acgt_bytes(seqs)
+        if flat is None:
             return None
         # vectorized padding (a per-string Python loop measured 1.3 ms
         # per 256-query batch — comparable to the device step itself)

@@ -59,6 +59,12 @@ def _load():
             lib.prep_minimizer_v2.restype = ctypes.c_int64
             lib.prep_minimizer_v3.restype = ctypes.c_int64
             lib.prep_minimizer_v3_seqs.restype = ctypes.c_int64
+            lib.prep_classic_seqs.restype = ctypes.c_int64
+            lib.prep_classic_seqs.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p,
+            ]
             _lib = lib
         except (OSError, AttributeError) as e:
             logger.warning(
@@ -429,6 +435,52 @@ def prep_minimizer_v3_seqs(
         np.ascontiguousarray(gmask[:, :u]),
         n_valid,
     )
+
+
+def prep_classic_seqs(
+    seqs: np.ndarray, sstart: np.ndarray, k: int, h: int, m: int, nthreads: int = 0,
+    out: np.ndarray | None = None,
+) -> tuple[np.ndarray, np.ndarray] | None:
+    """A classic batch's padded row ids straight from its SEQUENCES.
+
+    seqs uint8[total_len] (concatenated ACGT query bytes), sstart
+    int64[B+1] -> (idx int32[B, kmax, h], n int32[B]): query q's distinct
+    k-mers in first-seen order, each as the classic rows of its canonical
+    form (``kmer_matrix_to_row_idx`` of ``unique_rows_with_inverse`` of
+    ``seq_to_kmer_matrix``, bit for bit), ids past ``n[q]`` zero, kmax =
+    max(1, max n).  One threaded native pass (``min(8, cpu_count)``
+    threads unless given); ACGT-only bytes are the caller's contract, as
+    for :func:`prep_minimizer_v3_seqs`.  ``idx`` is a view of ``out``
+    (a C-contiguous int32 buffer the caller reuses) where that holds B x
+    (max(1, longest query - k + 1)) x h ids, else of a new buffer.  None
+    without the lib or on bad parameters (k past 32, m past 2**31 - 1).
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    seqs = np.ascontiguousarray(seqs, dtype=np.uint8)
+    sstart = np.ascontiguousarray(sstart, dtype=np.int64)
+    b = len(sstart) - 1
+    if b < 0 or sstart[0] != 0 or sstart[-1] != seqs.shape[0]:
+        return None
+    lens = np.diff(sstart)
+    if (lens < 0).any():
+        return None
+    k_cap = max(1, int(np.maximum(lens - k + 1, 0).max()) if b else 0)
+    if nthreads <= 0:
+        nthreads = min(8, os.cpu_count() or 1)
+    need = b * k_cap * h
+    if (out is None or out.dtype != np.int32 or not out.flags.c_contiguous
+            or out.size < need):
+        out = np.empty(need, dtype=np.int32)
+    out = out.reshape(-1)
+    n = np.empty(b, dtype=np.int32)
+    kmax = lib.prep_classic_seqs(
+        _ptr(seqs), _ptr(sstart), b, k, h, m, nthreads, _ptr(out), out.size, _ptr(n)
+    )
+    if kmax < 0:
+        return None
+    return out[: b * kmax * h].reshape(b, kmax, h), n
 
 
 def decode_cortex_kmers(packed: np.ndarray, k: int) -> np.ndarray | None:

@@ -1,7 +1,8 @@
 """The one-program query steps of the port against the JAX package's:
 ``ops/lookup.py:make_full_query_step`` and ``entry.py:entry`` (their
 plain versions on the CPU), and the facade's split of its host part
-into ``search.kmer_prep``, ``search.hash`` and ``search.pad``.
+into ``search.kmer_prep``, ``search.hash`` and ``search.pad`` on each
+of its classic routes.
 
 The same numpy inputs go through the JAX function (JAX on the CPU) and
 the port; counts are integers, so every comparison is exact.
@@ -93,10 +94,15 @@ def test_entry_without_cuda_raises(monkeypatch):
         entry()
 
 
-def test_search_batch_splits_its_host_part():
-    """A classic index's search_batch times k-mer extraction and dedup,
-    the per-query hashing and the padding, each once, and its result
-    dicts stay those of the numpy host engine."""
+@pytest.mark.parametrize("route", ["native", "per_query"])
+def test_search_batch_splits_its_host_part(route):
+    """A classic index's search_batch times its host part, and its result
+    dicts stay those of the numpy host engine.  An ACGT batch takes the
+    one native pass: ``search.kmer_prep`` (bytes to padded row ids) and
+    ``search.pad`` (the mask) once each, no ``search.hash``; a batch
+    with an N takes the per-query route: k-mer extraction and dedup, the
+    per-query hashing and the padding, each once, after the refused
+    native pass's gate (a second ``search.kmer_prep``)."""
     rng = np.random.default_rng(4)
     config = {"storage-engine": "memory", "storage-config": {"filename": "entry-spans"},
               "k": 31, "m": 8192, "h": 3}
@@ -107,11 +113,18 @@ def test_search_batch_splits_its_host_part():
     port = bigsi_tpu_torch.BIGSI(config, device="cpu")
     host = bigsi_tpu_torch.BIGSI(dict(config, engine="numpy"))
     queries = [genomes[0][:120], genomes[1], genomes[2][:20], genomes[3][50:200]]
+    spans = ["search.kmer_prep", "search.hash", "search.pad", "search.batch_counts"]
+    if route == "native":
+        spans.remove("search.hash")
+    else:
+        queries[1] = genomes[1][:100] + "N" + genomes[1][101:]
     for threshold in (1.0, 0.7):
         bigsi_tpu_torch.metrics.reset()
         got = port.search_batch(queries, threshold)
         timers = bigsi_tpu_torch.metrics.snapshot()["timers"]
-        for name in ("search.kmer_prep", "search.hash", "search.pad", "search.batch_counts"):
-            assert timers[name]["count"] == 1, name
+        for name in spans:
+            refused_gate = route == "per_query" and name == "search.kmer_prep"
+            assert timers[name]["count"] == 1 + refused_gate, name
             assert timers[name]["total_s"] >= 0.0
+        assert ("search.hash" in timers) == (route == "per_query")
         assert got == host.search_batch(queries, threshold)
