@@ -42,7 +42,9 @@
 // build an index on the card, and kernel L gives scoring's presence:
 // presence_rows, the per-k-mer presence rows of one query or shard, and
 // presence_strings, a whole scored batch's result strings in one launch.
-// Each is described at its code below.
+// Kernel M, hits_compact, thresholds a batch's counts and compacts its
+// hits, so that only they cross to the host.  Each is described at its
+// code below.
 //
 // What bounds kernels A, B and C on an H100: gathered bytes, at random
 // rows.  At m = 2.5e7 and W = 32 the matrix is 3.2 GB, far beyond the 50
@@ -2378,6 +2380,145 @@ int launch_strings(const Bit& bit, const void* rows, int h, const void* kmer_off
                                                                     static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+// hits_compact (kernel M) replaces no TPU kernel: the JAX package copies
+// a batch's counts [B, N] to the host and thresholds them there
+// (bigsi_tpu/graph/bigsi.py:_batch_results).  It was added because that
+// copy, its widening to int64 and the scan dominated a batch of 256 on
+// the card's host (PERF.md, section 5), while a query hits a few of
+// thousands of samples.  Per query b it computes min_kmers = ceil(n_valid
+// * threshold) in float64 (the facade's math.ceil, bit for bit; 0 where
+// that is below 0) and writes the hits record (ops/lookup.py:
+// hits_compact): rec[0] the batch's total of hits, rec[1 + b] n_valid,
+// rec[1 + B + b] the start of b's segment of entries, rec[1 + 2B + b] its
+// hits, and from rec[head] the (colour, count) pairs, ascending colour
+// within a segment.  A query with n_valid 0 has no hits.
+//
+// One block of 256 threads a query, each thread taking 4 samples at a
+// time as one 16-byte load where the row allows it (rows ld int32 apart
+// from a 16-byte boundary, ld a multiple of 4), else 4 loads.  Pass 1
+// counts the row's hits with 8 such loads in flight a thread (a block
+// reads 8,192 samples at once) and sums them over the block; thread 0
+// reserves the query's segment with one atomicAdd on rec[0].  A segment
+// that would pass cap is not written: the total then exceeds cap and the
+// host copies the dense counts instead.  Pass 2 reads the row again in
+// chunks of 1,024 samples: a warp's shuffle scan of its threads' hits and
+// the warps' totals in shared memory give each hit its place, so the
+// segment keeps colour order; it stops after the query's last hit.
+// Segments are reserved in whatever order the blocks run, so the host
+// reads each query's start.
+//
+// What bounds it: bytes, B * N * 4 of counts read once (8.4 MB at B =
+// 256, N = 8,192: 2.5 us at 3.35 TB/s); pass 2 reads a hit query's row
+// again, from L2, where the counts' producer just left them.  The hits
+// written are a few KB.  A first build, one sample a thread and pass 2 in
+// chunks of 256, took 0.031 ms cold on an H100 80GB HBM3 (PERF.md,
+// section 6): 32 dependent loads a thread in pass 1, 32 chunks in pass 2.
+
+constexpr int kHitThreads = 256;
+constexpr int kHitWarps = kHitThreads / 32;
+constexpr int kHitChunk = 4 * kHitThreads;  // samples a block reads with one load a thread
+constexpr int kHitLoads = 8;                // loads in flight a thread in pass 1
+
+// Samples i .. i + 3 of a row; past N they read INT32_MIN, never a hit.
+__device__ __forceinline__ int4 hit_load(const int32_t* row, int i, int N, bool vec) {
+  if (vec && i + 3 < N) return __ldg(reinterpret_cast<const int4*>(row + i));
+  int4 v;
+  v.x = i < N ? __ldg(row + i) : INT32_MIN;
+  v.y = i + 1 < N ? __ldg(row + i + 1) : INT32_MIN;
+  v.z = i + 2 < N ? __ldg(row + i + 2) : INT32_MIN;
+  v.w = i + 3 < N ? __ldg(row + i + 3) : INT32_MIN;
+  return v;
+}
+
+// Bit e set when sample e of the four is a hit.
+__device__ __forceinline__ unsigned hit_bits(const int4& v, int mk) {
+  return static_cast<unsigned>(v.x >= mk) | static_cast<unsigned>(v.y >= mk) << 1 |
+         static_cast<unsigned>(v.z >= mk) << 2 | static_cast<unsigned>(v.w >= mk) << 3;
+}
+
+__global__ void __launch_bounds__(kHitThreads)
+hits_compact_kernel(const int32_t* __restrict__ counts, int N, int64_t ld, bool vec,
+                    const int32_t* __restrict__ n_valid, double threshold, int cap, int head,
+                    int32_t* __restrict__ rec) {
+  __shared__ int s_warp[kHitWarps];
+  __shared__ int s_start, s_hits;
+  const int B = gridDim.x;
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nk = __ldg(n_valid + b);
+  if (nk <= 0) {
+    if (threadIdx.x == 0) {
+      rec[1 + b] = nk;
+      rec[1 + B + b] = 0;
+      rec[1 + 2 * B + b] = 0;
+    }
+    return;
+  }
+  const double want = ceil(static_cast<double>(nk) * threshold);
+  const int mk = want > 0.0 ? static_cast<int>(want) : 0;
+  const int32_t* row = counts + static_cast<int64_t>(b) * ld;
+
+  int n = 0;
+  for (int c0 = 0; c0 < N; c0 += kHitLoads * kHitChunk) {
+    int4 v[kHitLoads];
+#pragma unroll
+    for (int j = 0; j < kHitLoads; ++j) {
+      v[j] = hit_load(row, c0 + j * kHitChunk + 4 * threadIdx.x, N, vec);
+    }
+#pragma unroll
+    for (int j = 0; j < kHitLoads; ++j) n += __popc(hit_bits(v[j], mk));
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) n += __shfl_xor_sync(kAllOnes, n, d);
+  if (lane == 0) s_warp[warp] = n;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int hits = 0;
+    for (int w = 0; w < kHitWarps; ++w) hits += s_warp[w];
+    const int start = hits ? atomicAdd(rec, hits) : 0;
+    rec[1 + b] = nk;
+    rec[1 + B + b] = start;
+    rec[1 + 2 * B + b] = hits;
+    s_start = start;
+    s_hits = hits;
+  }
+  __syncthreads();
+  const int start = s_start;
+  const int hits = s_hits;
+  if (hits == 0 || start > cap - hits) return;
+
+  int2* out = reinterpret_cast<int2*>(rec + head) + start;
+  for (int c0 = 0, done = 0; done < hits && c0 < N; c0 += kHitChunk) {
+    const int i = c0 + 4 * threadIdx.x;
+    const int4 v = hit_load(row, i, N, vec);
+    const unsigned bits = hit_bits(v, mk);
+    int upto = __popc(bits);  // this thread's hits and its warp's lower lanes'
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int x = __shfl_up_sync(kAllOnes, upto, d);
+      if (lane >= d) upto += x;
+    }
+    if (lane == 31) s_warp[warp] = upto;
+    __syncthreads();
+    int before = 0, chunk = 0;
+#pragma unroll
+    for (int w = 0; w < kHitWarps; ++w) {
+      const int c = s_warp[w];
+      before += w < warp ? c : 0;
+      chunk += c;
+    }
+    if (bits) {
+      int at = done + before + upto - __popc(bits);
+      if (bits & 1u) out[at++] = make_int2(i, v.x);
+      if (bits & 2u) out[at++] = make_int2(i + 1, v.y);
+      if (bits & 4u) out[at++] = make_int2(i + 2, v.z);
+      if (bits & 8u) out[at] = make_int2(i + 3, v.w);
+    }
+    done += chunk;
+    __syncthreads();  // s_warp is written again by the next chunk
+  }
+}
 }  // namespace
 
 extern "C" {
@@ -2689,6 +2830,26 @@ int presence_strings_cols(const void* cols, int W, int elem_bytes, int tile_rows
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Kernel M.  counts int32[B, N] with rows ld int32 apart; n_valid
+// int32[B]; rec int32[head + 2 * cap], head at least 1 + 3 * B and even
+// (the entries are int2).  Sets rec[0] to 0 (a memset on `stream`), then
+// launches; B * N must stay below 2^31 and N at most 2^31 - 2^16.
+int hits_compact(const void* counts, int B, int N, int64_t ld, const void* n_valid,
+                 double threshold, int cap, int head, void* rec, void* stream) {
+  if (B <= 0 || N < 0 || N > 0x7FFF0000 || ld < N || cap < 0 || head < 1 + 3 * B || head % 2 ||
+      static_cast<int64_t>(B) * N > 0x7FFFFFFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(rec, 0, sizeof(int32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = reinterpret_cast<uintptr_t>(counts) % 16 == 0 && ld % 4 == 0;
+  hits_compact_kernel<<<B, kHitThreads, 0, s>>>(
+      static_cast<const int32_t*>(counts), N, ld, vec, static_cast<const int32_t*>(n_valid),
+      threshold, cap, head, static_cast<int32_t*>(rec));
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* lookup_error_string(int code) {

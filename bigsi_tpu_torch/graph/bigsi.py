@@ -70,6 +70,8 @@ from bigsi_tpu_torch.index import verify
 from bigsi_tpu_torch.index.device_engine import (
     DeviceEngine,
     DeviceVerifier,
+    Hits,
+    dense_hits,
     device_fits,
     resolve_device,
 )
@@ -126,13 +128,18 @@ class BigsiQueryResult:
     def add_score(self, score: dict) -> None:
         self.score = score
 
-    def todict(self) -> dict:
-        out = {
-            "percent_kmers_found": self.percent_kmers_found,
-            "num_kmers": self.num_kmers,
-            "num_kmers_found": self.num_kmers_found,
-            "sample_name": self.sample_name,
+    @staticmethod
+    def wire(sample_name: str, num_kmers_found: int, num_kmers: int) -> dict:
+        """The wire dict of an unscored hit, without building the object."""
+        return {
+            "percent_kmers_found": round(100 * num_kmers_found / num_kmers, 2),
+            "num_kmers": num_kmers,
+            "num_kmers_found": num_kmers_found,
+            "sample_name": sample_name,
         }
+
+    def todict(self) -> dict:
+        out = self.wire(self.sample_name, self.num_kmers_found, self.num_kmers)
         if self.score:
             out.update(self.score)
         return out
@@ -319,7 +326,10 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
                 packed, num_kmers, min_kmers, side_pres
             )
         if score:
-            self._score([row_idx], [inverse], [results], [packed], [side_pres])
+            scores = self._score([row_idx], [inverse], [[r.colour for r in results]],
+                                 [packed], [side_pres])
+            for r, score in zip(results, scores[0]):
+                r.add_score(score)
         return [
             r.todict()
             for r in results
@@ -536,12 +546,23 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         idx, nks = prep
         with phase("search.pad"):
             mask = np.arange(idx.shape[1]) < nks[:, None]
+        metrics.incr("search.queries", len(seqs))
+        metrics.incr("search.kmers", int(nks.sum()))
+        if self._hits_route():
+            with phase("search.batch_counts"):
+                hits = self.engine.counts_batch(idx, mask, self.bitmatrix.num_cols, threshold, nks)
+            return self._batch_results(None, hits, threshold)
         with phase("search.batch_counts"):
             counts = self._counts_batch(idx, mask)
         per_query = [(idx[i, :nk], nk) for i, nk in enumerate(nks.tolist())]
-        metrics.incr("search.queries", len(seqs))
-        metrics.incr("search.kmers", int(nks.sum()))
         return self._batch_results(per_query, self._with_side(counts, per_query), threshold)
+
+    def _hits_route(self) -> bool:
+        """Whether the classic native route and the seq arm take the
+        engine's hits (``counts_batch`` and ``counts_batch_seqs`` given the
+        threshold): the engine is the card's, which offers them, and no
+        staged column needs the dense counts."""
+        return self.side is None and isinstance(self.engine, DeviceEngine)
 
     @staticmethod
     def _all_acgt(flat: np.ndarray) -> bool:
@@ -608,15 +629,19 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
             metrics.incr("search.seq_gate_refused")
             return None
         padded, lens = prep
+        args = (padded, lens, self.kmer_size, self.num_hashes, self.num_samples)
         with phase("search.batch_counts"):
-            out = self.engine.counts_batch_seqs(
-                padded, lens, self.kmer_size, self.num_hashes,
-                self.num_samples,
-            )
+            if self._hits_route():
+                out = self.engine.counts_batch_seqs(*args, threshold)
+            else:
+                out = self.engine.counts_batch_seqs(*args)
         if out is None:
             return None  # grouped-entry overflow: host path re-runs
-        counts, n_valid = out
-        per_query = [(None, int(nv)) for nv in n_valid]
+        if isinstance(out, Hits):
+            per_query, counts, n_valid = None, out, out.nks
+        else:
+            counts, n_valid = out
+            per_query = [(None, int(nv)) for nv in n_valid]
         metrics.incr("search.queries", b)
         metrics.incr("search.kmers", int(n_valid.sum()))
         return self._batch_results(per_query, counts, threshold, None)
@@ -763,31 +788,37 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
             return out
 
     def _batch_results(self, per_query, counts, threshold, score_info=None):
+        """The result lists of a batch from its hits: ``counts`` is the
+        engine's :class:`Hits`, or dense counts [B, N] that one host
+        threshold turns into them (``dense_hits``, the distinct k-mers
+        from ``per_query``: (row ids or None, distinct k-mers) a query,
+        which scoring also reads)."""
         # timed beside "search.batch_counts", so one search_batch splits
         # into k-mer prep, engine counts and results; a scored batch's
         # results hold its "search.presence" and "search.score" spans
         with phase("search.batch_results"):
-            found = []
-            for i, (row_idx, num_kmers) in enumerate(per_query):
-                if num_kmers == 0:
-                    found.append([])
-                    continue
-                min_kmers = math.ceil(num_kmers * threshold)
-                keep = np.flatnonzero(counts[i] >= min_kmers)
-                results = [
-                    BigsiQueryResult(
-                        colour=int(c),
-                        sample_name=self.colour_to_sample(int(c)),
-                        num_kmers_found=int(counts[i][c]),
-                        num_kmers=num_kmers,
-                    )
-                    for c in keep
-                ]
-                if threshold != 1.0:
-                    results.sort(key=lambda x: x.num_kmers_found, reverse=True)
-                found.append(results)
-            hits = [i for i, results in enumerate(found) if results]
-            if score_info is not None and hits:
+            hits = counts
+            if not isinstance(hits, Hits):
+                hits = dense_hits(counts, [nk for _, nk in per_query], threshold)
+            per = np.diff(hits.off)
+            q = np.repeat(np.arange(per.size, dtype=np.int64), per)
+            colours, found_kmers = hits.colours, hits.found
+            if threshold != 1.0:  # by count, descending; stable: colour order among equal counts
+                order = np.argsort((q << 32) - found_kmers, kind="stable")
+                colours, found_kmers = colours[order], found_kmers[order]
+            # the wire dicts and their colours, query by query, deleted
+            # samples left out
+            found = [[] for _ in range(per.size)]
+            kept = [[] for _ in range(per.size)]
+            names, wire = self.colour_to_sample, BigsiQueryResult.wire
+            for i, c, n, nk in zip(q.tolist(), colours.tolist(), found_kmers.tolist(),
+                                   np.repeat(hits.nks, per).tolist()):
+                name = names(c)
+                if name != DELETION_SPECIAL_SAMPLE_NAME:
+                    found[i].append(wire(name, n, nk))
+                    kept[i].append(c)
+            hit_queries = [i for i, results in enumerate(found) if results]
+            if score_info is not None and hit_queries:
                 # scoring pass ONLY over hit queries, all of them in one
                 # engine call.  The k-mer path hashed no rows: hash each
                 # hit query's k-mers, one call a query (one call over the
@@ -797,17 +828,14 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
                     self.kmer_matrix_to_row_idx(score_info[i][0])
                     if per_query[i][0] is None
                     else per_query[i][0]
-                    for i in hits
+                    for i in hit_queries
                 ]
-                self._score(rows, [score_info[i][1] for i in hits], [found[i] for i in hits])
-            return [
-                [
-                    r.todict()
-                    for r in results
-                    if not r.sample_name == DELETION_SPECIAL_SAMPLE_NAME
-                ]
-                for results in found
-            ]
+                scores = self._score(rows, [score_info[i][1] for i in hit_queries],
+                                     [kept[i] for i in hit_queries])
+                for i, query_scores in zip(hit_queries, scores):
+                    for d, score in zip(found[i], query_scores):
+                        d.update(score)
+            return found
 
     def _counts_batch(self, idx, mask):
         engine = self.engine
@@ -859,8 +887,10 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         results.sort(key=lambda x: x.num_kmers_found, reverse=True)
         return results
 
-    def _score(self, row_idx_list, inverse_list, results_list, packed_list=None,
+    def _score(self, row_idx_list, inverse_list, colours_list, packed_list=None,
                side_list=None):
+        """-> each query's score dicts, one a colour of ``colours_list``,
+        in its order."""
         # Each query's presence strings over ALL its positions (duplicates
         # included: ``inverse``), matching ``bigsi.py:232-239``, which
         # stacks one row per k-mer of the sliding window; then the scorer.
@@ -873,20 +903,21 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
         n = self.bitmatrix.num_cols
         engine = self.engine
         with phase("search.presence"):
-            colours = [[r.colour for r in res if r.colour < n] for res in results_list]
+            colours = [[c for c in cs if c < n] for cs in colours_list]
             if hasattr(engine, "presence_strings"):
                 strings = engine.presence_strings(row_idx_list, inverse_list, colours, n)
             else:
                 strings = presence_strings_fallback(
                     engine, row_idx_list, inverse_list, colours, n, packed_list
                 )
+        out = []
         with phase("search.score"):
-            for i, (row_idx, inverse, results, main) in enumerate(
-                zip(row_idx_list, inverse_list, results_list, strings)
+            for i, (row_idx, inverse, cs, main) in enumerate(
+                zip(row_idx_list, inverse_list, colours_list, strings)
             ):
-                main, side = iter(main), None
-                for res in results:
-                    if res.colour < n:
+                main, side, scores = iter(main), None, []
+                for c in cs:
+                    if c < n:
                         col = next(main)
                     else:
                         if side is None:
@@ -896,10 +927,12 @@ class BIGSI(SampleMetadata, KmerSignatureIndex):
                                 else side_list[i]
                             )
                             side = side[inverse].astype(np.uint8) + np.uint8(0x30)
-                        col = side[:, res.colour - n].tobytes().decode("ascii")
+                        col = side[:, c - n].tobytes().decode("ascii")
                     score_results = self.scorer.score(col)
                     score_results["kmer-presence"] = col
-                    res.add_score(score_results)
+                    scores.append(score_results)
+                out.append(scores)
+        return out
 
     # -- mutation -----------------------------------------------------
 

@@ -36,6 +36,12 @@ library, ``counts_batch_kmers`` serves the other batches straight from
 ASCII k-mers: the threaded native prep builds the grouped
 streams, the next chunk's prep overlapping the current chunk's kernel.
 A single query reduces through its layout's kernel as a batch of one.
+``counts_batch`` and ``counts_batch_seqs`` given a threshold keep the
+counts on the card: kernel M
+(:func:`~bigsi_tpu_torch.ops.fused_lookup.hits_compact`) thresholds
+them and only each query's hits come back (:class:`Hits`), in one copy
+into a pinned host buffer the engine keeps; a batch whose hits outgrow
+the record's room takes the dense copy in the same call.
 Scoring's presence strings come from kernel L's strings form
 (``presence_strings``), one launch a scored search or batch; kernel L's
 row form serves ``presence_matrix``.  A verified index's
@@ -49,7 +55,9 @@ per-bucket budgets are defined on.
 from __future__ import annotations
 
 import contextvars
+import threading
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -70,6 +78,7 @@ from bigsi_tpu_torch.ops.fused_lookup import (
     classic_counts,
     cols_counts,
     grouped_tile_counts,
+    hits_compact,
     pack_tile_cols,
     presence_rows,
     presence_strings,
@@ -79,6 +88,10 @@ from bigsi_tpu_torch.ops.fused_lookup import (
 
 TILED_LAYOUTS = ("blocked", "minimizer")
 LOAD_CHUNK_ROWS = 1 << 20  # rows per host->device copy in load_words and load_cols
+# the hits record's room a query (at most its samples): a query of the
+# benchmark's gene and short traffic hits at most 4 of 8,192 (PERF.md
+# section 4); a batch past the room takes the dense copy
+HITS_PER_QUERY = 64
 
 # long-query guards of the seq arm, kept equal to the JAX engine's routing
 # (bigsi_tpu/index/device_engine.py): a hard NK ceiling, and a B*NK^2
@@ -264,6 +277,47 @@ def counts_to_host(counts: torch.Tensor) -> np.ndarray:
         return host.numpy().astype(np.int64)
 
 
+class Hits(NamedTuple):
+    """A batch's hits, query by query: query q's are ``colours[off[q] :
+    off[q + 1]]`` (ascending) with their ``found`` counts, out of its
+    ``nks[q]`` distinct k-mers.  int64 numpy arrays, the counts first as
+    in the engine's dense returns."""
+
+    found: np.ndarray  # [total]
+    colours: np.ndarray  # [total]
+    off: np.ndarray  # [B + 1]
+    nks: np.ndarray  # [B]
+
+
+def dense_hits(counts: np.ndarray, nks, threshold: float) -> Hits:
+    """The host's threshold of dense counts int[B, N]: a sample is a hit
+    of query q when its count reaches ``ceil(nks[q] * threshold)``
+    (float64, the facade's ``math.ceil`` bit for bit); a query of no
+    distinct k-mer has none."""
+    nks = np.asarray(nks, dtype=np.int64).reshape(-1)
+    mins = np.maximum(np.ceil(nks * float(threshold)), 0).astype(np.int64)
+    sel = counts >= mins[:, None]
+    sel[nks == 0] = False
+    q, c = np.nonzero(sel)  # row-major: colours ascending within a query
+    off = np.zeros(nks.size + 1, dtype=np.int64)
+    np.cumsum(np.bincount(q, minlength=nks.size), out=off[1:])
+    return Hits(counts[q, c].astype(np.int64), c.astype(np.int64), off, nks)
+
+
+def decode_hits(rec: np.ndarray, b: int, cap: int) -> Hits:
+    """A hits record (``ops/lookup.py:hits_compact``, int32, a total of at
+    most ``cap``) -> :class:`Hits`, each query's segment read from its
+    start; every array is a copy, so ``rec`` may be reused."""
+    total = int(rec[0])
+    nks, start, cnt = (rec[1 + i * b : 1 + (i + 1) * b].astype(np.int64) for i in range(3))
+    off = np.zeros(b + 1, dtype=np.int64)
+    np.cumsum(cnt, out=off[1:])
+    src = np.repeat(start - off[:-1], cnt) + np.arange(total)
+    head = plain.hits_head(b)
+    ent = rec[head : head + 2 * cap].reshape(cap, 2)[src].astype(np.int64)
+    return Hits(ent[:, 1], ent[:, 0], off, nks)
+
+
 def kmer_streams_to_device(prep, device):
     """The native prep's (utile int32[B, U], gmask uint32[B, U, r],
     n_valid int32[B]) -> the same on ``device``, gmask as int64, as
@@ -318,6 +372,9 @@ class DeviceEngine:
         # counts_batch_seqs' escalation state: {padded length lb:
         # big-budget batches left before the tight budget is retried}
         self._seq_cap_esc = {}
+        # each calling thread's pinned buffer of the hits record, reused
+        # call after call (fresh pages every call cost the host, PERF.md §6)
+        self._hits_host = threading.local()
         rows = matrix.num_rows
         if self.tiled:
             rows = -(-rows // tile_rows) * tile_rows
@@ -465,15 +522,51 @@ class DeviceEngine:
     # -- batched search (the serving path of search_batch / bulk_search)
 
     def counts_batch(
-        self, row_idx: np.ndarray, mask: np.ndarray, num_cols: int
-    ) -> np.ndarray:
+        self, row_idx: np.ndarray, mask: np.ndarray, num_cols: int,
+        threshold: float | None = None, nks: np.ndarray | None = None,
+    ):
         """row ids int[B, K, h] (padding k-mers hold any in-range id),
-        mask bool[B, K] -> int64[B, num_cols], in one kernel launch."""
+        mask bool[B, K] -> int64[B, num_cols], in one kernel launch.  The
+        classic route's hits: given ``threshold`` and nks int[B], each
+        query's valid k-mers, the batch's :class:`Hits` instead, the
+        counts thresholded on the card (:meth:`_hits`)."""
         b, k = mask.shape
         if b == 0 or k == 0:
-            return np.zeros((b, num_cols), dtype=np.int64)
+            counts = np.zeros((b, num_cols), dtype=np.int64)
+            return counts if threshold is None else dense_hits(counts, nks, threshold)
         counts, _ = self._reduce(row_idx, mask)
-        return counts_to_host(counts[:, :num_cols])
+        if threshold is None:
+            return counts_to_host(counts[:, :num_cols])
+        return self._hits(counts[:, :num_cols], self._to_device(nks, np.int32), threshold)
+
+    def _hits(self, counts: torch.Tensor, n_valid: torch.Tensor, threshold: float) -> Hits:
+        """Device counts int32[B, N] and n_valid int32[B] -> :class:`Hits`:
+        kernel M writes the hits record, one copy brings it back (span
+        ``engine.counts_back``: it waits for the kernels) into this
+        thread's pinned buffer, and its decode is ``engine.widen``.  When
+        the hits outgrow the record's room the dense counts come back
+        instead (:func:`counts_to_host`) and the host thresholds them.
+        Counters ``engine.hits_calls`` and ``engine.hits_overflow``."""
+        metrics.incr("engine.hits_calls")
+        b, n = counts.shape
+        cap = b * min(n, HITS_PER_QUERY)
+        rec = hits_compact(counts, n_valid, threshold, cap)
+        with phase("engine.counts_back"):
+            if rec.device.type == "cuda":
+                host = getattr(self._hits_host, "buf", None)
+                if host is None or host.numel() < rec.numel():
+                    host = self._hits_host.buf = torch.empty(
+                        rec.numel(), dtype=torch.int32, pin_memory=True)
+                host = host[: rec.numel()].copy_(rec)
+            else:
+                host = rec
+            out = host.numpy()
+        if int(out[0]) > cap:
+            metrics.incr("engine.hits_overflow")
+            nks = out[1 : 1 + b].copy()
+            return dense_hits(counts_to_host(counts), nks, threshold)
+        with phase("engine.widen"):
+            return decode_hits(out, b, cap)
 
     # -- the k-mer serving path (minimizer cols, slot scheme 2 or 3)
 
@@ -578,22 +671,26 @@ class DeviceEngine:
         return min(nk, ((int(expect * 1.15) + 4 + 7) // 8) * 8)
 
     def counts_batch_seqs(
-        self, seqs: np.ndarray, lens: np.ndarray, k: int, h: int, num_cols: int
+        self, seqs: np.ndarray, lens: np.ndarray, k: int, h: int, num_cols: int,
+        threshold: float | None = None,
     ):
         """Padded ASCII query bytes straight to per-query hit counts, on
         the card: seqs uint8[B, L] (rows padded with any byte), lens
         int32[B] -> (counts int64[B, num_cols], n_valid int32[B] distinct
-        k-mers per query), or None when the geometry guard refuses the
-        batch or a query overflows the safe entry budget (the caller
-        falls back to the host paths).  ACGT-only bytes are the caller's
-        contract.  The tight budget is tried first; an overflow escalates
-        to the safe one in the same call and keeps it for the batch's
-        length bucket for SEQ_CAP_DECAY clean batches.  Counters:
+        k-mers per query), or with ``threshold`` the batch's :class:`Hits`
+        (:meth:`_hits`, inside ``engine.seq_out``); None when the geometry
+        guard refuses the batch or a query overflows the safe entry
+        budget (the caller falls back to the host paths).  ACGT-only
+        bytes are the caller's contract.  The tight budget is tried
+        first; an overflow escalates to the safe one in the same call and
+        keeps it for the batch's length bucket for SEQ_CAP_DECAY clean
+        batches.  Counters:
         ``engine.seq_calls`` (b > 0), ``engine.seq_launches`` (H and E,
         once a budget tried) and ``engine.seq_refused`` (None returned)."""
         b, _ = seqs.shape
         if b == 0:
-            return np.zeros((0, num_cols), dtype=np.int64), np.zeros(0, dtype=np.int32)
+            counts, nks = np.zeros((0, num_cols), dtype=np.int64), np.zeros(0, dtype=np.int32)
+            return (counts, nks) if threshold is None else dense_hits(counts, nks, threshold)
         metrics.incr("engine.seq_calls")
         s = window_to_s(k, self.minimizer_window) or default_minimizer_s(k)
         window = k - s + 1
@@ -624,6 +721,8 @@ class DeviceEngine:
                 if cap == u_big and remaining > 0:
                     esc[lb] = remaining - 1
                 with phase("engine.seq_out"):
+                    if threshold is not None:
+                        return self._hits(counts[:b, :num_cols], n_valid[:b], threshold)
                     return counts_to_host(counts[:b, :num_cols]), n_valid[:b].cpu().numpy()
             if cap != u_big:
                 esc[lb] = self.SEQ_CAP_DECAY

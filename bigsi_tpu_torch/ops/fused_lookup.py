@@ -50,6 +50,9 @@
   programs plus the facade's gather of each result's presence string
   (``bigsi_tpu/graph/bigsi.py:_score_results``), for a whole scored
   batch in one launch that writes only the result columns' strings.
+* :func:`hits_compact` is kernel M.  It replaces no TPU kernel (the JAX
+  package thresholds a batch's counts on the host): it thresholds the
+  counts on the card and writes only each query's hits.
 
 A wrapper checks its arguments, then runs the plain version from
 :mod:`bigsi_tpu_torch.ops.lookup` (kernel H's from
@@ -114,12 +117,13 @@ def _library() -> ctypes.CDLL:
     lib.presence_strings_classic.argtypes = [ptr, i32] + strings
     lib.presence_strings_slot.argtypes = [ptr, i32, i32] + strings
     lib.presence_strings_cols.argtypes = [ptr, i32, i32, i32] + strings
+    lib.hits_compact.argtypes = [ptr, i32, i32, i64, ptr, ctypes.c_double, i32, i32, ptr, ptr]
     for fn in (lib.classic_counts, lib.tile_counts, lib.grouped_tile_counts,
                lib.pack_tile_cols, lib.cols_counts, lib.tile_counts_only,
                lib.gather_rows, lib.tile_xor, lib.seq_streams, lib.kmer_rows,
                lib.bloom_scatter, lib.bloom_transpose, lib.presence_rows_classic,
                lib.presence_rows_slot, lib.presence_rows_cols, lib.presence_strings_classic,
-               lib.presence_strings_slot, lib.presence_strings_cols):
+               lib.presence_strings_slot, lib.presence_strings_cols, lib.hits_compact):
         fn.restype = i32
     lib.lookup_error_string.argtypes = [i32]
     lib.lookup_error_string.restype = ctypes.c_char_p
@@ -734,3 +738,41 @@ def presence_strings(matrix: torch.Tensor, source: str, rows: torch.Tensor,
 
 
 presence_strings.launches = 0
+
+
+def hits_compact(counts: torch.Tensor, n_valid: torch.Tensor, threshold: float,
+                 cap: int) -> torch.Tensor:
+    """A batch's hits, thresholded and compacted on the counts' device.
+
+    counts int32[B, N] (rows any stride apart, samples contiguous),
+    n_valid int32[B] distinct k-mers a query, ``threshold`` at most 1,
+    ``cap`` the hits the record has room for -> the hits record
+    int32[``plain.hits_size(B, cap)``] of
+    :func:`bigsi_tpu_torch.ops.lookup.hits_compact`: the total, each
+    query's n_valid, segment start and hits, then (colour, count) pairs
+    in ascending colour within a segment.  A total above ``cap`` means
+    the segments that did not fit were not written.  On the card the
+    segments lie in the order the kernel's blocks reserved them.
+    """
+    if counts.dim() != 2:
+        raise ValueError("counts must be [B, N]")
+    b, n = counts.shape
+    if counts.dtype != torch.int32 or (n > 1 and counts.stride(1) != 1):
+        raise TypeError("counts must be int32 with contiguous samples")
+    check_tensor("n_valid", n_valid, torch.int32, (b,), counts.device)
+    threshold = float(threshold)
+    if not threshold <= 1.0:
+        raise ValueError("threshold must be at most 1, got %r" % threshold)
+    if cap < 0 or b * n >= 1 << 31:
+        raise ValueError("cap must be >= 0 and B * N below 2**31")
+    if device_kind(counts) == "cpu":
+        return plain.hits_compact(counts, n_valid, threshold, cap)
+    if b == 0:
+        return torch.zeros(plain.hits_size(0, cap), dtype=torch.int32, device=counts.device)
+    rec = torch.empty(plain.hits_size(b, cap), dtype=torch.int32, device=counts.device)
+    ld = counts.stride(0) if b > 1 else n
+    args = (counts.data_ptr(), b, n, ld, n_valid.data_ptr(), threshold, cap, plain.hits_head(b))
+    return launch(hits_compact, counts.device, args, (rec,))[0]
+
+
+hits_compact.launches = 0

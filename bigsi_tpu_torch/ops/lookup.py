@@ -11,7 +11,9 @@ re-stated here because that module imports jax, with
 tile window for row slabs), ``presence_strings`` (the facade's scored
 presence strings of a whole batch, from its row ids), and the plain versions
 of the probes' kernels (``gather_rows``, ``tile_xor``, and
-``blocked_counts`` without exact); ``field_hits`` and
+``blocked_counts`` without exact), and ``hits_compact``, the hits record
+of a batch's counts (kernel M; the JAX package thresholds on the host,
+so it restates no JAX function); ``field_hits`` and
 ``grouped_counts_cols_live`` restate kernel E's own arithmetic (its
 packed field test and its live-slot counts), and ``plane_counts`` the
 bit-plane counter of kernels B and C.  They are the
@@ -519,3 +521,58 @@ def grouped_counts_cols_live(cols, utile, gmask, n_valid):
         counts[q] = hit.sum(dim=0, dtype=torch.int32) + int(n_valid[q]) - ent.numel()
         every[q] = hit.all(dim=0)
     return counts, pack_bits(every)
+
+
+HITS_FIELDS = 3  # the record's per-query fields: distinct k-mers, start, hits
+
+
+def hits_head(b: int) -> int:
+    """Where a hits record of ``b`` queries starts its entries: after the
+    total, the per-query fields and padding to a multiple of 4 int32."""
+    return -(-(1 + HITS_FIELDS * b) // 4) * 4
+
+
+def hits_size(b: int, cap: int) -> int:
+    """The int32 length of a hits record of ``b`` queries and room for
+    ``cap`` hits."""
+    return hits_head(b) + 2 * cap
+
+
+def min_kmers(n_valid: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Per query the least count a hit needs, int64: ``ceil(n_valid *
+    threshold)`` in float64, the facade's ``math.ceil(nk * threshold)``
+    bit for bit, and 0 where that is below 0 (counts are never
+    negative)."""
+    return torch.ceil(n_valid.to(torch.float64) * threshold).clamp_(min=0).to(torch.int64)
+
+
+def hits_compact(counts, n_valid, threshold: float, cap: int) -> torch.Tensor:
+    """The hits of a batch's counts (plain kernel M).
+
+    counts int32[B, N] (any row stride), n_valid int32[B] distinct k-mers
+    a query -> the hits record, int32[hits_size(B, cap)]: ``[0]`` the
+    batch's total of hits; ``[1 + q]`` query q's n_valid, ``[1 + B + q]``
+    the start of its segment of entries and ``[1 + 2B + q]`` its hits;
+    from ``hits_head(B)`` on, entry j as (colour, count) at ``2j, 2j +
+    1``.  A hit of query q is a sample whose count is at least
+    :func:`min_kmers`; a query with no distinct k-mer has none.  A
+    segment holds its query's hits in ascending colour; one that would
+    pass ``cap`` is not written, so a total above ``cap`` leaves only
+    the total and n_valid to read.  The kernel reserves segments in no
+    set order; here they follow the queries."""
+    b, _ = counts.shape
+    mins = min_kmers(n_valid, threshold)
+    hit = (counts >= mins[:, None]) & (n_valid > 0)[:, None]
+    q, c = hit.nonzero(as_tuple=True)  # row-major: colours ascending within a query
+    cnt = hit.sum(dim=1)
+    start = torch.cumsum(cnt, 0) - cnt
+    rec = torch.zeros(hits_size(b, cap), dtype=torch.int32, device=counts.device)
+    rec[0] = int(cnt.sum())
+    rec[1 : 1 + b] = n_valid
+    rec[1 + b : 1 + 2 * b] = start.to(torch.int32)
+    rec[1 + 2 * b : 1 + 3 * b] = cnt.to(torch.int32)
+    fits = (start + cnt <= cap)[q]
+    ent = rec[hits_head(b) :].view(cap, 2)
+    ent[:, 0][: int(fits.sum())] = c[fits].to(torch.int32)
+    ent[:, 1][: int(fits.sum())] = counts[q[fits], c[fits]]
+    return rec

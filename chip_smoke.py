@@ -315,17 +315,20 @@ KERNELS = (
     ("presence_rows", "bigsi_tpu/index/device_engine.py:79, :151, :158"),
     ("presence_strings",
      "bigsi_tpu/index/device_engine.py:79, :151, :158; bigsi_tpu/graph/bigsi.py:713-726"),
+    ("hits_compact",
+     "none: the JAX package thresholds on the host (bigsi_tpu/graph/bigsi.py:627-628)"),
 )
 COLS_KERNELS = ("pack_tile_cols", "cols_counts", "seq_streams")
 PRESENCE = "presence_rows"  # kernel L's row form: a mesh's and a fleet's scored presence
 STRINGS = "presence_strings"  # kernel L's strings form: every scored search on a DeviceEngine
+HITS = "hits_compact"  # kernel M: the classic native route's and the seq arm's unscored batches
 # the indexes of phases 4-9: name -> (config entries, kernels of its path)
 INDEXES = {
-    "classic": ({"layout": "classic"}, ("classic_counts", STRINGS)),
+    "classic": ({"layout": "classic"}, ("classic_counts", HITS, STRINGS)),
     "blocked/32": ({"layout": "blocked", "tile-rows": 32}, ("tile_counts", STRINGS)),
     "minimizer/16": ({"layout": "minimizer", "tile-rows": 16, "minimizer-window": 19},
-                     COLS_KERNELS + (STRINGS,)),
-    "minimizer/32": ({"layout": "minimizer", "tile-rows": 32}, COLS_KERNELS + (STRINGS,)),
+                     COLS_KERNELS + (HITS, STRINGS)),
+    "minimizer/32": ({"layout": "minimizer", "tile-rows": 32}, COLS_KERNELS + (HITS, STRINGS)),
     "minimizer/64": ({"layout": "minimizer", "tile-rows": 64},
                      ("grouped_tile_counts", STRINGS)),
     # rows.bin classic, screen.bin minimizer/16 w = 19 (the screen's
@@ -1070,6 +1073,169 @@ def seq_checks(gen, rng, errors: Errors) -> None:
           "(kernel E) bit-exact on the streams "
           "of all %d, over random cols of each case's tiles"
           % (len(oks), oks.count(False), B, B, len(oks)), flush=True)
+
+
+HITS_B, HITS_N = 256, 8192  # the benchmark cells' batch and samples (kernel M's shape)
+
+
+def hits_cases(gen):
+    """Kernel M's cases: (name, counts int32[B, N] view, n_valid, threshold,
+    cap), mostly at B = 256, N = 8,192 as the benchmark's cells give it:
+    counts well under each query's least count but 4 samples at n_valid
+    and 2 at 0.8 of it, 1 query in 16 of no k-mer, rows 32 samples apart
+    (the engine's counts[:, :num_cols] view); then every sample a hit
+    (min_kmers 0) and uniform counts at 1/3, both past the room, no hit
+    at all, one query, and ragged N."""
+    import torch
+
+    from bigsi_tpu_torch.index.device_engine import HITS_PER_QUERY
+
+    dev = torch.device(DEVICE)
+
+    def batch(b, n):
+        nv = torch.randint(1, 3000, (b,), generator=gen, device=dev, dtype=torch.int32)
+        nv[1::16] = 0
+        wide = torch.zeros((b, n + 32), dtype=torch.int32, device=dev)
+        low = torch.rand((b, n), generator=gen, device=dev) * nv[:, None].float() * 0.3
+        wide[:, :n] = low.int()
+        rows = torch.arange(b, device=dev)
+        for j, share in ((0, 1.0), (1, 1.0), (2, 1.0), (3, 1.0), (4, 0.8), (5, 0.8)):
+            col = torch.randint(0, n, (b,), generator=gen, device=dev)
+            wide[rows, col] = (nv.double() * share).ceil().int()
+        return wide[:, :n], nv
+
+    b, n = HITS_B, HITS_N
+    cap = b * HITS_PER_QUERY
+    counts, nv = batch(b, n)
+    uniform = (torch.rand((b, n), generator=gen, device=dev) * (nv[:, None].float() + 1)).int()
+    one, nv1 = batch(1, n)
+    ragged, nvr = batch(37, 33)
+    return [
+        ("B=256 N=8192 t=1.0", counts, nv, 1.0, cap),
+        ("B=256 N=8192 t=0.7", counts, nv, 0.7, cap),
+        ("B=256 N=8192 t=0.7 contiguous", counts.contiguous(), nv, 0.7, cap),
+        ("B=256 N=8192 min_kmers 0 (every sample, past the room)", counts, nv, 0.0, cap),
+        ("B=256 N=8192 uniform t=1/3 (past the room)", uniform, nv, 1 / 3, cap),
+        ("B=256 N=8192 no hit", torch.zeros_like(uniform), nv, 0.7, cap),
+        ("B=1 N=8192 t=0.7", one, nv1, 0.7, min(n, HITS_PER_QUERY)),
+        ("B=37 N=33 t=0.7", ragged, nvr, 0.7, 37 * 33),
+    ]
+
+
+def hits_same(got, want_rec, counts, n_valid, threshold, cap, case) -> int:
+    """Kernel M's record against the plain version's: the total, n_valid
+    and each query's hits; within the room every query's segment (read
+    from its own start), past it each segment the kernel wrote against
+    the plain version's over all the hits.  -> the total."""
+    from bigsi_tpu_torch.index.device_engine import decode_hits
+    from bigsi_tpu_torch.ops import lookup as plain
+
+    b = counts.shape[0]
+    g, w = got.cpu().numpy(), want_rec.cpu().numpy()
+    check(np.array_equal(g[: 1 + b], w[: 1 + b]) and np.array_equal(
+        g[1 + 2 * b : 1 + 3 * b], w[1 + 2 * b : 1 + 3 * b]),
+        "hits_compact %s: total, n_valid and hits a query equal the plain version's" % case)
+    total = int(w[0])
+    if total <= cap:
+        for a, e in zip(decode_hits(g, b, cap), decode_hits(w, b, cap)):
+            check(np.array_equal(a, e), "hits_compact %s: the hits equal the plain version's"
+                  % case)
+        return total
+    full = plain.hits_compact(counts, n_valid, threshold, total).cpu().numpy()
+    want = decode_hits(full, b, total)
+    head = plain.hits_head(b)
+    start, cnt = g[1 + b : 1 + 2 * b], g[1 + 2 * b : 1 + 3 * b]
+    written = 0
+    for q in range(b):
+        if cnt[q] and start[q] + cnt[q] <= cap:
+            seg = g[head + 2 * start[q] : head + 2 * (start[q] + cnt[q])].reshape(-1, 2)
+            lo, hi = want.off[q], want.off[q + 1]
+            check(np.array_equal(seg[:, 0], want.colours[lo:hi])
+                  and np.array_equal(seg[:, 1], want.found[lo:hi]),
+                  "hits_compact %s: a segment written past the room is its query's" % case)
+            written += int(cnt[q])
+    check(0 < written <= cap, "hits_compact %s: segments within the room written (%d)"
+          % (case, written))
+    return total
+
+
+def phase_hits(gpu: str, gen) -> dict:
+    """Kernel M (hits_compact) against its plain version on hits_cases,
+    then timed at B = 256, N = 8,192, t = 0.7: warm (the counts in L2, as
+    kernels A and E leave them) and cold, beside its bound, its plain
+    version and torch.nonzero's threshold; and on the host's clock the
+    engine's counts back both ways, the dense copy with the host's
+    threshold against the hits record (DeviceEngine._hits).  -> its row
+    for the kernels line."""
+    import types
+
+    import torch
+
+    from bigsi_tpu_torch.index.device_engine import DeviceEngine, counts_to_host, dense_hits
+    from bigsi_tpu_torch.ops import fused_lookup as fl
+    from bigsi_tpu_torch.ops import lookup as plain
+    from bigsi_tpu_torch.scripts.timing import cuda_ms
+
+    fl.hits_compact.launches = 0
+    totals = []
+    cases = hits_cases(gen)
+    for case, counts, nv, t, cap in cases:
+        got = fl.hits_compact(counts, nv, t, cap)
+        want = plain.hits_compact(counts, nv, t, cap)
+        torch.cuda.synchronize()
+        totals.append(hits_same(got, want, counts, nv, t, cap, case))
+    check(fl.hits_compact.launches == len(cases), "one launch a case")
+    case, counts, nv, t, cap = cases[2]  # the engine's counts[:, :num_cols] at N = W * 32
+    b, n = counts.shape
+
+    def kernel():
+        fl.hits_compact(counts, nv, t, cap)
+
+    # warm: back to back behind a spin that outlasts their enqueue, so the
+    # events time the device alone, the counts in L2 after the first
+    reps = 200
+    kernel()
+    torch.cuda._sleep(SPIN_CYCLES)
+    spun = torch.cuda.Event()
+    spun.record()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        kernel()
+    end.record()
+    check(not spun.query(), "the spin outlasted the launches' enqueue")
+    end.synchronize()
+    warm = start.elapsed_time(end) / reps
+    cold = cuda_ms(kernel, 20, DEVICE)
+    plain_ms = cuda_ms(lambda: plain.hits_compact(counts, nv, t, cap), 5, DEVICE)
+    mins = plain.min_kmers(nv, t)
+    library_ms = cuda_ms(lambda: torch.nonzero(counts >= mins[:, None]), 20, DEVICE)
+    moved = b * n * 4 + b * 4 + (plain.hits_head(b) + 2 * totals[1]) * 4
+    engine = types.SimpleNamespace(_hits_host=threading.local())
+
+    def host_ms(fn, calls=50):
+        times = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[calls // 2]
+
+    nv_host = nv.cpu().numpy()
+    dense = host_ms(lambda: dense_hits(counts_to_host(counts), nv_host, t))
+    hits = host_ms(lambda: DeviceEngine._hits(engine, counts, nv, t))
+    row = {"ms": cold, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": bound_ms(moved),
+           "library_ms": library_ms, "host_dense_ms": dense, "host_hits_ms": hits}
+    print("phase 3 hits: hits_compact (kernel M) equal to its plain version in %d cases "
+          "(totals %s; room %d at B=256: %d past it); at %s: %.4f ms cold, %.4f ms warm "
+          "(counts in L2), bound %.4f ms (%.1f MB at 3.35 TB/s), plain %.4f ms, "
+          "torch.nonzero %.4f ms; the engine's counts back, host clock median of 50: dense "
+          "copy + host threshold %.3f ms, hits record %.3f ms  [%s]"
+          % (len(cases), totals, cap, sum(x > cap for x in totals[:6]), case, cold, warm,
+             bound_ms(moved), moved / 1e6, plain_ms, library_ms, dense, hits, gpu), flush=True)
+    print(json.dumps({"hits_compact": row}), flush=True)
+    return row
 
 
 MUTATION_M = 1 << 20  # bloom bits of the mutation check's small indexes
@@ -2003,9 +2169,11 @@ def batch_kmers(seqs):
 
 
 def batch_hash_times(number: int, gpu: str, seqs, mid: dict, errors: Errors) -> None:
-    """Beside the classic search_batch's host hashing (span search.hash):
-    kernel I on the same batch's distinct k-mers, with the copy-in of
-    their bytes (host clock, synchronized) and alone (CUDA events)."""
+    """Beside the classic search_batch's host k-mer prep and hashing
+    (spans search.kmer_prep and search.hash; the native route hashes in
+    its one pass, inside search.kmer_prep): kernel I on the same batch's
+    distinct k-mers, with the copy-in of their bytes (host clock,
+    synchronized) and alone (CUDA events)."""
     import torch
 
     from bigsi_tpu_torch.ops import fused_lookup as fl
@@ -2027,11 +2195,13 @@ def batch_hash_times(number: int, gpu: str, seqs, mid: dict, errors: Errors) -> 
                    (kmer_hash.kmer_rows_plain(*args, True, M),), "the classic batch's k-mers")
     with_copy = host_ms(copy_and_hash, 20)
     alone = cuda_ms(lambda: fl.kmer_rows(*args, canonical=True, m=M), 20, DEVICE)
-    print("phase %d hash classic [%s]: search.hash %.3f ms on the host (the median call) "
-          "against kernel I on the batch's %d distinct k-mers: %.4f ms with the copy-in of "
-          "their %.2f MB of bytes (host clock, synchronized), %.4f ms alone (CUDA events, "
-          "cold L2)" % (number, gpu, mid["search.hash"], flat.shape[0], with_copy,
-                        flat.nbytes / 1e6, alone), flush=True)
+    opened = [span for span in ("search.kmer_prep", "search.hash") if span in mid]
+    print("phase %d hash classic [%s]: %s %.3f ms on the host "
+          "(the median call) against kernel I on the batch's %d distinct k-mers: %.4f ms with "
+          "the copy-in of their %.2f MB of bytes (host clock, synchronized), %.4f ms alone "
+          "(CUDA events, cold L2)"
+          % (number, gpu, " + ".join(opened), sum(mid[span] for span in opened),
+             flat.shape[0], with_copy, flat.nbytes / 1e6, alone), flush=True)
 
 
 def phase_times(number: int, gpu: str, runs, errors: Errors, rng) -> dict:
@@ -2055,15 +2225,15 @@ def phase_times(number: int, gpu: str, runs, errors: Errors, rng) -> dict:
         moved = bound_bytes(kname, *args)
         record(kernel_ms, kname, k_ms, p_ms, moved)
         print("phase %d times %s [%s]: search_batch of %d queries, median of %d calls "
-              "%.3f ms (%.1f queries/s); inside that call: the host part %.3f ms (k-mer "
-              "extraction and dedup %.3f ms, hashing %.3f ms, padding %.3f ms: spans "
-              "search.kmer_prep, search.hash, search.pad), engine counts_batch %.3f ms, "
+              "%.3f ms (%.1f queries/s); inside that call: the host part %.3f ms (the spans "
+              "that opened: %s), engine counts_batch %.3f ms, "
               "result building %.3f ms; %s kernel %.4f ms vs plain PyTorch %.4f ms (%s, cold "
               "L2); kernel share of search_batch %.4f; bound %.4f ms by bytes (%.1f MB), %.3f "
               "of bound"
               % (number, name, gpu, B, len(calls), mid["search_batch"],
                  B / mid["search_batch"] * 1e3, mid["prep"],
-                 *(mid[span] for span in HOST_SPANS), mid["counts"], mid["results"],
+                 ", ".join("%s %.3f ms" % (span, mid[span]) for span in HOST_SPANS if span in mid),
+                 mid["counts"], mid["results"],
                  kname, k_ms, p_ms, shape, k_ms / mid["search_batch"], bound_ms(moved),
                  moved / 1e6, bound_ms(moved) / k_ms),
               flush=True)
@@ -3772,6 +3942,7 @@ def main() -> None:
     errors = Errors()
     phase_kernels(gen, errors)
     seq_checks(gen, rng, errors)
+    hits_row = phase_hits(gpu, gen)
     phase_mutation(rng)
 
     # the main path, one index at a time: only its launches are counted
@@ -3788,6 +3959,7 @@ def main() -> None:
             launches[k] += counted[k]
 
     kernel_ms = phase_times(number + 1, gpu, runs, errors, rng)
+    kernel_ms[HITS] = hits_row
     phase_probe_ah(number + 1, gpu, runs, gen, rng)
     probe_ms, counted = phase_probes(number + 2, gpu, runs, gen, errors, fns)
     kernel_ms.update(probe_ms)
